@@ -6,12 +6,14 @@ so each module's counterpart is easy to find. Plain tensor code is PyTorch;
 every Pallas kernel of the JAX package on the ported path is a CUDA kernel
 written for Hopper (``csrc/``), built with ``nvcc`` at first use.
 
-The host-only modules of the JAX package import no jax and are shared, not
-copied: ``config`` (one ``cf`` configures both packages), ``ops/pyramid``,
-``ops/nms``, ``ops/rectangles``, ``native`` and ``data/*``. This package
-never imports jax.
+The port imports nothing of the JAX package and never imports jax: it
+keeps its own copies of the host-only modules it needs (``config``,
+``ops/pyramid``, ``ops/nms``, ``ops/rectangles``, ``native``,
+``utils/log``, ``data/synthetic``, ``data/image_io``). Its ``config`` is a
+configuration of its own. Entry points run on the CUDA card unless the
+caller asks for the CPU (``device="cpu"``).
 """
 
-from rapidobjectdetectionusingcascadedcnns_tpu import config  # noqa: F401
+from . import config  # noqa: F401
 
 __version__ = "0.1.0"

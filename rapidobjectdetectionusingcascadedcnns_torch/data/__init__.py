@@ -1,4 +1,4 @@
-"""Data helpers of the port: the JAX package's host-only ``data`` modules
-(numpy, no jax) are shared as they are."""
+"""Data helpers of the port: the synthetic scene generator and host image
+resizing, copied from the JAX package's ``data`` modules."""
 
-from rapidobjectdetectionusingcascadedcnns_tpu.data import synthetic  # noqa: F401
+from . import synthetic  # noqa: F401

@@ -16,15 +16,18 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .cnn import Params, StageConfig
 
 
-def _tensor(x, device) -> torch.Tensor:
+def _tensor(x, device: torch.device) -> torch.Tensor:
     return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
 
 
 def params_from_numpy(tree, device=None) -> Params:
-    """One stage's pytree (array leaves with an ``__array__``) -> port params."""
+    """One stage's pytree (array leaves with an ``__array__``) -> port params
+    on ``device`` (default: the CUDA card; ``"cpu"`` for the CPU)."""
+    device = resolve_device(device)
     if "backbone" in tree:
         raise NotImplementedError(
             "the Inception backbone is not ported yet (ROADMAP Queue A item 12)"
@@ -68,9 +71,11 @@ def cascade_model_from_jax_arrays(
     stage_params: Sequence, stage_configs: Sequence, stage_means, stage_stds,
     device=None,
 ):
-    """The fields of a JAX ``CascadeModel`` -> the port's ``CascadeModel``."""
+    """The fields of a JAX ``CascadeModel`` -> the port's ``CascadeModel`` on
+    ``device`` (default: the CUDA card; ``"cpu"`` for the CPU)."""
     from .cascade import CascadeModel
 
+    device = resolve_device(device)
     return CascadeModel(
         [params_from_numpy(p, device) for p in stage_params],
         [stage_config_from_jax(c) for c in stage_configs],
@@ -104,7 +109,8 @@ def load_stage(
 ) -> Tuple[Params, StageConfig, np.ndarray, np.ndarray, dict]:
     """Read one stage written by the JAX package's ``checkpoint.save_stage``:
     ``<path>.npz`` (path-flattened leaves plus ``__mean__``/``__std__``) and
-    its ``<path>.json`` sidecar. Returns (params, config, mean, std, meta)."""
+    its ``<path>.json`` sidecar. Returns (params, config, mean, std, meta),
+    the parameters on ``device`` (default: the CUDA card)."""
     npz_path = path if path.endswith(".npz") else path + ".npz"
     with open(npz_path[:-4] + ".json") as f:
         meta = json.load(f)
@@ -126,9 +132,11 @@ def load_stage(
 
 def load_cascade(model_dir: str, session_key: str, device=None):
     """Load ``model_<session_key>_<stage>.npz`` stages until one is missing
-    (the JAX package's ``checkpoint.load_cascade`` naming and probing)."""
+    (the JAX package's ``checkpoint.load_cascade`` naming and probing),
+    onto ``device`` (default: the CUDA card; ``"cpu"`` for the CPU)."""
     from .cascade import CascadeModel
 
+    device = resolve_device(device)
     params_list, cfg_list, means, stds = [], [], [], []
     while True:
         p = os.path.join(

@@ -1,28 +1,35 @@
 """Cascade inference: multi-stage early reject over window batches
-(counterpart of models/cascade.py, restricted to the ported path).
+(counterpart of models/cascade.py).
 
 Per chunk of same-size frames, every stage runs once for all frames:
 
-  stage 0:  pyramid resize + dense window gather (ops/windows.py, gather
-            mode) -> stage CNN over all windows -> foreground probs
+  stage 0:  gather mode (coarse pyramids, <= 48 levels): pyramid resize +
+            dense window gather (ops/windows.py); crop mode (dense
+            pyramids): every plan window resampled from the full frame,
+            by kernel K2 over the plan's static schedule
+            (ops/windows_sched.py) or by K1 over box chunks where there is
+            no schedule -> stage CNN over all windows -> foreground probs
   between:  compaction -- survivors move to the front of a fixed-capacity
             buffer ("scan": cumsum + searchsorted, window order; "rank":
             stable argsort on (alive, strength)); the next stage's windows
             are re-extracted from the full frame by kernel K1
-            (ops/windows_cuda.py), one launch per stage for the whole chunk
+            (ops/windows_cuda.py), or with ``dyn_reextract="on"`` by the
+            row-bounded kernel K4 (ops/windows_dyn.py), one launch per
+            stage for the whole chunk
   stage i:  CNN with the previous stage's bottleneck concat -> probs ->
             alive mask and LAST/AVG/MULT confidence accumulation
   last:     one packed float32 row per frame leaves the device; NMS runs on
-            the host (shared numpy/native groupRectangles).
+            the host (numpy/native groupRectangles).
 
 Capacities are fixed per dispatch; a frame whose survivors overflow a buffer
 is re-run alone with doubled capacities (saturation re-dispatch), so the
-result equals the reference's unbounded survivor sets.
+result equals the reference's unbounded survivor sets. A K4 big-class
+overflow is saturation too, and ends in a re-run with K1 if escalation
+cannot cure it.
 
 Not ported yet, and raising ``NotImplementedError`` rather than being
-rerouted: crop-mode extraction (dense pyramids, ROADMAP Queue A item 7,
-kernel K2), the on-device NMS tail (item 6, kernel K3), meshes (item 11)
-and the dynamic row-bounded re-extraction (kernel K4).
+rerouted: the on-device NMS tail (ROADMAP Queue A item 6, kernel K3) and
+meshes (item 11).
 """
 
 from __future__ import annotations
@@ -33,15 +40,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from rapidobjectdetectionusingcascadedcnns_tpu.ops.pyramid import (
-    PyramidPlan,
-    build_plan,
-    window_table,
-)
-
 from .. import config as cf
+from ..ops import windows_dyn, windows_sched
 from ..ops.color import yuv420_to_rgb
+from ..ops.pyramid import PyramidPlan, build_plan, window_table
 from ..ops.windows import crop_and_resize_impl, extract_windows, level_indices
+from ..utils import log
 from ..utils.device import resolve_device, set_numerics
 from . import cnn
 
@@ -68,7 +72,7 @@ class CascadeModel:
         return self.stage_params[0]["fc1"]["W"].device
 
     def to(self, device) -> "CascadeModel":
-        """A copy with every parameter on ``device``."""
+        """A copy with every parameter on ``device`` (None: the CUDA card)."""
         device = resolve_device(device)
 
         def move(p):
@@ -98,8 +102,8 @@ class DetectionResult:
     n_survivors_per_stage: List[int]
     # stage-0 window ids (plan order) of the pre-NMS survivors
     raw_window_ids: Optional[np.ndarray] = None
-    # per-re-extract overflow counts; always 0 here (only the dynamic
-    # row-bounded kernel K4, not ported yet, can overflow)
+    # per-re-extract big-class overflow counts of the row-bounded kernel K4
+    # (ops/windows_dyn.py); nonzero means the frame was re-dispatched
     reextract_overflows: Optional[List[int]] = None
 
 
@@ -162,17 +166,50 @@ def resolve_thresholds(n_stages: int) -> List[float]:
     return [float(t) for t in thr]
 
 
+RESAMPLE_CHOICES = ("auto", True, "pallas", "pallas2", "pallas2dyn")
+
+
+def resolve_resample_impl() -> str:
+    """The resampling kernels of a dispatch, from ``use_pallas_resample``,
+    ``stage0_scheduled_extraction`` and ``dyn_reextract`` (the JAX
+    package's resolution, with the TPU's kernels mapped to the port's):
+
+      * "pallas2": K2 for the crop-mode stage 0, K1 for re-extraction;
+      * "pallas": K1 for both;
+      * "pallas2dyn": "pallas2" with K4 for re-extraction.
+
+    "auto" is "pallas2" ("pallas" with ``stage0_scheduled_extraction``
+    "off"); "pallas" and ``True`` become "pallas2" with it "on"; "pallas2"
+    becomes "pallas2dyn" with ``dyn_reextract`` "on". The JAX package's
+    "xla" (and ``False``) names its einsum formulation, which the port does
+    not have: it raises ``ValueError`` rather than being rerouted.
+    """
+    configured = cf.get("use_pallas_resample")
+    sched_flag = cf.get("stage0_scheduled_extraction")
+    if configured not in RESAMPLE_CHOICES:
+        raise ValueError(
+            "use_pallas_resample={!r} has no counterpart in the port; use one of "
+            "{}".format(configured, ", ".join(repr(c) for c in RESAMPLE_CHOICES))
+        )
+    if configured == "pallas2dyn":
+        return configured
+    if configured == "pallas2":
+        impl = "pallas2"
+    elif configured == "auto":
+        impl = "pallas" if sched_flag == "off" else "pallas2"
+    else:  # "pallas" or True
+        impl = "pallas2" if sched_flag == "on" else "pallas"
+    if impl == "pallas2" and cf.get("dyn_reextract") == "on":
+        return "pallas2dyn"
+    return impl
+
+
 def _check_ported_path() -> None:
     """Refuse configurations whose path is not ported yet."""
     if cf.get("nms_on_device") and cf.get("nms") == cf.NMS_OPENCV:
         raise NotImplementedError(
             "nms_on_device: the on-device NMS tail is not ported yet "
             "(ROADMAP Queue A item 6, kernel K3)"
-        )
-    if cf.get("use_pallas_resample") == "pallas2dyn" or cf.get("dyn_reextract") == "on":
-        raise NotImplementedError(
-            "dynamic row-bounded re-extraction is not ported yet (ROADMAP "
-            "Queue B, kernel K4)"
         )
 
 
@@ -199,11 +236,12 @@ def _compact_indices(alive: torch.Tensor, p_fg: torch.Tensor, cap: int, compacti
 
 
 def _apply_stage_rows(params, cfg, x, bneck_in, mean, std, chunk: int):
-    """Standardize (R, s, s, C) windows and run the stage CNN over row
-    chunks of at most ``chunk`` (bounds the conv intermediates)."""
+    """Standardize (R, s, s, C) windows (any float dtype) and run the stage
+    CNN over row chunks of at most ``chunk`` (bounds the conv
+    intermediates)."""
     probs, bnecks = [], []
     for s in range(0, x.shape[0], chunk):
-        xc = (x[s : s + chunk] - mean) / std
+        xc = (x[s : s + chunk].float() - mean) / std
         bc = None if bneck_in is None else bneck_in[s : s + chunk]
         out = cnn.apply_stage(params, cfg, xc, bc)
         probs.append(out["probs"])
@@ -211,9 +249,86 @@ def _apply_stage_rows(params, cfg, x, bneck_in, mean, std, chunk: int):
     return torch.cat(probs), torch.cat(bnecks)
 
 
+def _stage0_schedule(plan: PyramidPlan, size: int, resample_impl: str,
+                     high_precision: bool):
+    """The scheduled extraction plan of stage 0 (kernel K2), or None when
+    the impl or the precision rules it out or the plan admits no schedule.
+    One definition for the device path (which consumes it) and the host
+    unpacking (which maps scheduled rows back to plan order)."""
+    if resample_impl not in ("pallas2", "pallas2dyn") or high_precision:
+        return None
+    return windows_sched.schedule_for_plan(plan, size, size)
+
+
+def _stage0_apply(
+    images: torch.Tensor,
+    boxes_float: torch.Tensor,
+    plan: PyramidPlan,
+    params,
+    stage_cfg: cnn.StageConfig,
+    mean0: torch.Tensor,
+    std0: torch.Tensor,
+    chunk: int,
+    extraction_mode: str,
+    resample_impl: str,
+    high_precision: bool,
+    indices=None,
+):
+    """Dense-pyramid stage-0 classification of (B, H, W, C) float32 frames,
+    shared by the cascade and the single-net detector.
+
+    gather mode: per-level resize + gather (``indices`` are the plan's
+    level index tables, built when None). crop mode: every window of
+    ``boxes_float`` (N, 4) resampled from the full frame -- by K2 over the
+    plan's schedule when there is one, else by K1 (or, with
+    ``high_precision``, the f32 gather) over chunks of ``chunk`` boxes.
+
+    Returns (probs (B, M, 2), bottleneck (B, M, F), window_ids0 (M,) int64
+    or None, valid0 (M,) bool or None): ids/valid are set exactly when K2
+    ran -- its rows are in scheduled order with replicated pad rows; ids
+    map rows back to plan order and valid masks the pads.
+    """
+    b, c = images.shape[0], images.shape[3]
+    size = stage_cfg.input_size
+
+    def classify(wins):
+        rows = wins.shape[0] * wins.shape[1]
+        probs, bneck = _apply_stage_rows(
+            params, stage_cfg, wins.reshape(rows, size, size, c), None, mean0, std0, chunk
+        )
+        return probs.reshape(b, -1, probs.shape[1]), bneck.reshape(b, -1, bneck.shape[1])
+
+    if extraction_mode == "crop":
+        sched = _stage0_schedule(plan, size, resample_impl, high_precision)
+        if sched is not None:
+            # scheduled order is consumed as it is: the window-id channel
+            # carries identity, so un-permuting the windows would be waste
+            probs, bneck = classify(windows_sched.extract_scheduled(images, boxes_float, sched))
+            ids, _, valid = sched.device_tables(images.device)
+            return probs, bneck, ids, valid
+        parts = [
+            classify(
+                crop_and_resize_impl(
+                    images, boxes_float[s : s + chunk].expand(b, -1, 4), size, size,
+                    high_precision,
+                )
+            )
+            for s in range(0, boxes_float.shape[0], chunk)
+        ]
+        return (
+            torch.cat([p for p, _ in parts], dim=1),
+            torch.cat([bn for _, bn in parts], dim=1),
+            None,
+            None,
+        )
+    probs, bneck = classify(extract_windows(images, plan, indices))
+    return probs, bneck, None, None
+
+
 def cascade_core(
     images: torch.Tensor,
     coords_norm: torch.Tensor,
+    boxes_float: torch.Tensor,
     stage_params: Sequence[cnn.Params],
     stage_stats: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     plan: PyramidPlan,
@@ -225,32 +340,38 @@ def cascade_core(
     chunk: int = 16384,
     compaction: str = "rank",
     indices=None,
+    extraction_mode: str = "gather",
+    resample_impl: str = "pallas2",
 ):
-    """Full cascade over a chunk of frames (gather-mode stage 0).
+    """Full cascade over a chunk of frames.
 
     ``images`` (B, H, W, C) float32; ``coords_norm`` (N0, 4) int64 window
-    boxes on the original image. Returns ``window_ids`` (B, C_last) int64,
-    ``conf`` (B, C_last) f32, ``alive`` (B, C_last) bool and
-    ``diagnostics`` (B, 2 * n_stages - 1): per-stage pre-compaction
-    survivor counts, then per-re-extract overflow counts (always 0).
+    boxes on the original image (re-extraction); ``boxes_float`` (N0, 4)
+    float32 exact window geometry (crop-mode stage 0). Returns
+    ``window_ids`` (B, C_last) int64, ``conf`` (B, C_last) f32, ``alive``
+    (B, C_last) bool and ``diagnostics`` (B, 2 * n_stages - 1): per-stage
+    pre-compaction survivor counts, then per-re-extract K4 big-class
+    overflow counts (0 where K4 did not run).
     """
     n_stages = len(stage_configs)
     b = images.shape[0]
     images = images.float()
+    img_h = images.shape[1]
 
-    size0 = stage_configs[0].input_size
-    windows = extract_windows(images, plan, indices)  # (B, N0, s0, s0, C)
-    n0 = windows.shape[1]
     mean0, std0 = stage_stats[0]
-    probs0, bneck0 = _apply_stage_rows(
-        stage_params[0], stage_configs[0],
-        windows.reshape(b * n0, size0, size0, -1), None, mean0, std0, chunk,
+    probs0, bottleneck, ids0, valid0 = _stage0_apply(
+        images, boxes_float, plan, stage_params[0], stage_configs[0], mean0, std0,
+        chunk, extraction_mode, resample_impl, high_precision, indices,
     )
-    p_fg = probs0[:, 1].reshape(b, n0)
-    bottleneck = bneck0.reshape(b, n0, -1)
+    n0 = probs0.shape[1]
+    p_fg = probs0[..., 1]
     alive = p_fg > thresholds[0]
+    if valid0 is not None:
+        alive = alive & valid0
     conf = p_fg
-    window_ids = torch.arange(n0, device=images.device).expand(b, n0)
+    if ids0 is None:
+        ids0 = torch.arange(n0, device=images.device)
+    window_ids = ids0.expand(b, n0)
     survivors = [alive.sum(dim=1)]
     overflows = []
 
@@ -265,7 +386,20 @@ def cascade_core(
         cfg_i = stage_configs[i]
         size_i = cfg_i.input_size
         boxes = coords_norm[window_ids].float()  # (B, cap, 4)
-        wins = crop_and_resize_impl(images, boxes, size_i, size_i, high_precision)
+        use_dyn = (
+            resample_impl == "pallas2dyn"
+            and not high_precision
+            and windows_dyn.dyn_supported(img_h, images.shape[2], size_i, size_i, cap)
+        )
+        if use_dyn:
+            wins, _n_big, overflow = windows_dyn.extract_rowbound(
+                images, boxes, size_i, size_i,
+                big_cap=windows_dyn.default_big_cap(cap, size_i, size_i, img_h),
+            )
+        else:
+            wins = crop_and_resize_impl(images, boxes, size_i, size_i, high_precision)
+            overflow = torch.zeros(b, dtype=torch.long, device=images.device)
+        overflows.append(overflow)
         mean_i, std_i = stage_stats[i]
         bneck_in = (
             bottleneck.reshape(b * cap, -1) if cfg_i.bottleneck_in_size is not None else None
@@ -285,7 +419,6 @@ def cascade_core(
             conf = p_i
         p_fg = p_i
         survivors.append(alive.sum(dim=1))
-        overflows.append(torch.zeros(b, dtype=torch.long, device=images.device))
 
     if confidence_mode == cf.FINAL_CONFIDENCE_CALCULATION_AVG:
         conf = conf / n_stages
@@ -308,7 +441,7 @@ class CascadeDetector:
     """Host orchestration around :func:`cascade_core`.
 
     One instance per :class:`CascadeModel`; it runs on the model's device.
-    Pyramid plans and their device index tables are cached per image size.
+    Pyramid plans and their device tables are cached per image size.
     """
 
     def __init__(self, model: CascadeModel, capacity_schedule=None, mesh=None):
@@ -322,7 +455,7 @@ class CascadeDetector:
         self.device = model.device
         self.redispatches = 0  # saturation re-runs, for diagnostics
         self._saturation_warned = False
-        self._plan_cache: Dict[tuple, tuple] = {}
+        self._plan_cache: Dict[tuple, list] = {}
         self._capacity_override = capacity_schedule or cf.get("cascade_capacity_schedule")
         for c in model.stage_configs:
             set_numerics(c.compute_dtype)
@@ -337,7 +470,11 @@ class CascadeDetector:
             cnn.cast_params(p, c) for p, c in zip(model.stage_params, model.stage_configs)
         )
 
-    def _plan_and_table(self, img_h: int, img_w: int):
+    def _plan_and_table(self, img_h: int, img_w: int) -> list:
+        """[plan, window table, coords_norm (N, 4) int64 and boxes_float
+        (N, 4) float32 on the device, level indices], cached per size and
+        pyramid config. The level indices stay None until gather mode asks
+        for them (:meth:`_level_indices`); crop mode never does."""
         size0 = self.model.input_sizes[0]
         mwl = float(cf.get("min_window_length"))
         wsf = float(cf.get("window_scale_factor"))
@@ -350,11 +487,19 @@ class CascadeDetector:
         coords_norm = torch.as_tensor(
             table["coords_norm"].astype(np.int64), device=self.device
         )
-        entry = (plan, table, coords_norm, level_indices(plan, self.device))
+        boxes_float = torch.as_tensor(table["boxes_float"], device=self.device)
+        entry = [plan, table, coords_norm, boxes_float, None]
         if len(self._plan_cache) >= 128:
             self._plan_cache.pop(next(iter(self._plan_cache)))
         self._plan_cache[key] = entry
         return entry
+
+    def _level_indices(self, entry: list):
+        """Gather mode's per-level index tables on the device, built into
+        the plan's cache entry on first use."""
+        if entry[4] is None:
+            entry[4] = level_indices(entry[0], self.device)
+        return entry[4]
 
     def detect(self, image: np.ndarray) -> DetectionResult:
         """Run the full pyramid cascade on one (H, W, 3) uint8 image."""
@@ -368,7 +513,7 @@ class CascadeDetector:
         if not buckets:
             return self._detect_batch_exact(images)
 
-        from rapidobjectdetectionusingcascadedcnns_tpu.data.image_io import resize_rgb
+        from ..data.image_io import resize_rgb
 
         resized: List[np.ndarray] = []
         inverse_scales: List[Tuple[float, float]] = []
@@ -398,9 +543,13 @@ class CascadeDetector:
         2) uint8). The chroma -> RGB decode runs on the device."""
         return self._detect_batch_exact(frames, yuv=True)
 
-    def _run_chunk(self, frames: Sequence, yuv: bool, caps, plan, coords_norm, indices):
+    def _run_chunk(self, frames: Sequence, yuv: bool, caps, entry, resample: Optional[str]):
         """Upload one chunk of frames and enqueue its cascade; returns the
-        packed (B, row) tensor on the device (not yet synchronised)."""
+        packed (B, row) tensor on the device (not yet synchronised).
+        ``resample`` overrides the configured kernels (the K1 re-run after
+        a K4 overflow)."""
+        plan, _, coords_norm, boxes_float, _ = entry
+        mode = resolve_extraction_mode(plan)
         if yuv:
             y = torch.as_tensor(np.stack([f[0] for f in frames]), device=self.device)
             uv = torch.as_tensor(np.stack([f[1] for f in frames]), device=self.device)
@@ -411,6 +560,7 @@ class CascadeDetector:
         out = cascade_core(
             images,
             coords_norm,
+            boxes_float,
             self._params_device,
             self._stats_device,
             plan,
@@ -421,7 +571,9 @@ class CascadeDetector:
             bool(cf.get("inference_high_precision")),
             int(cf.get("inference_chunk_size")),
             resolve_compaction(),
-            indices,
+            self._level_indices(entry) if mode == "gather" else None,
+            mode,
+            resample or resolve_resample_impl(),
         )
         return pack_result(*out)
 
@@ -430,6 +582,7 @@ class CascadeDetector:
         ``inference_batch_frames``; up to ``inference_pipeline_depth`` chunks
         are enqueued before the oldest is read back."""
         _check_ported_path()
+        resolve_resample_impl()  # refuse an unported choice before any upload
         max_frames = int(cf.get("inference_batch_frames"))
         depth = max(1, int(cf.get("inference_pipeline_depth")))
         results: List[Optional[DetectionResult]] = [None] * len(images)
@@ -440,21 +593,17 @@ class CascadeDetector:
             by_size.setdefault((shape[0], shape[1]), []).append(i)
 
         for (img_h, img_w), idxs in by_size.items():
-            plan, table, coords_norm, indices = self._plan_and_table(img_h, img_w)
+            entry = self._plan_and_table(img_h, img_w)
+            plan, table = entry[0], entry[1]
             if plan.n_windows < 1:
                 raise ValueError("Could not extract any windows from the given image")
-            if resolve_extraction_mode(plan) == "crop":
-                raise NotImplementedError(
-                    "crop-mode window extraction (dense pyramids, > 48 levels) is "
-                    "not ported yet (ROADMAP Queue A item 7, kernel K2)"
-                )
             capacities = tuple(
                 self._capacity_override
                 or default_capacity_schedule(plan.n_windows, self.model.n_nets)
             )
 
-            def run(frames, caps):
-                return self._run_chunk(frames, yuv, caps, plan, coords_norm, indices)
+            def run(frames, caps, resample=None):
+                return self._run_chunk(frames, yuv, caps, entry, resample)
 
             pending, done = [], []
             for s in range(0, len(idxs), max_frames):
@@ -507,10 +656,27 @@ class CascadeDetector:
         """Re-run the frame alone with doubled capacities (bounded retries)
         so no detection is lost to truncation; with
         ``cascade_saturation_redispatch`` off, warn once and keep the
-        truncated result."""
-        from rapidobjectdetectionusingcascadedcnns_tpu.utils import log
+        truncated result. A K4 big-class overflow is never kept: its
+        windows carry other windows' pixels, so the frame gets one
+        corrective re-run with K1 ("pallas"), at unchanged capacities when
+        re-dispatch is off, after the escalation budget otherwise."""
+
+        def rerun(caps, resample=None):
+            self.redispatches += 1
+            packed = run([frame], caps, resample).cpu().numpy()
+            return self._unpack_row(packed[0], caps, plan, table)
+
+        def overflowed(res) -> bool:
+            return bool(res.reextract_overflows and any(o > 0 for o in res.reextract_overflows))
 
         if not cf.get("cascade_saturation_redispatch"):
+            if overflowed(result):
+                log.log(
+                    "WARNING: dynamic re-extraction big class overflowed "
+                    "(cascade_saturation_redispatch is off); re-running with "
+                    "the full-image resampler at unchanged capacities."
+                )
+                return rerun(list(capacities), resample="pallas")
             if not self._saturation_warned:
                 log.log(
                     "WARNING: a cascade stage saturated its survivor capacity; "
@@ -531,13 +697,17 @@ class CascadeDetector:
                 "WARNING: cascade stage saturated its survivor capacity; "
                 "re-dispatching with capacities {}".format(caps)
             )
-            self.redispatches += 1
-            packed = run([frame], caps).cpu().numpy()
-            result = self._unpack_row(packed[0], caps, plan, table)
+            result = rerun(caps)
             if not self._is_saturated(
                 result.n_survivors_per_stage, caps, result.reextract_overflows
             ):
                 return result
+        if overflowed(result):
+            log.log(
+                "WARNING: dynamic re-extraction big class overflowed; "
+                "re-dispatching with the full-image resampler."
+            )
+            result = rerun(caps, resample="pallas")
         return result
 
 
@@ -547,9 +717,10 @@ def build_cascade_model(
     img_size_max: Optional[int] = None,
     device=None,
 ) -> CascadeModel:
-    """Randomly initialized cascade with the configured architecture. The
-    weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)``
-    and then moved, so a seed gives the same weights on every device."""
+    """Randomly initialized cascade with the configured architecture, on
+    ``device`` (default: the CUDA card; ``"cpu"`` for the CPU). The weights
+    are drawn on the CPU from ``torch.Generator().manual_seed(seed)`` and
+    then moved, so a seed gives the same weights on every device."""
     n_nets = n_nets or cf.get("cascade_n_nets")
     img_size_max = img_size_max or cf.get("img_width")
     sizes = cnn.stage_input_sizes(

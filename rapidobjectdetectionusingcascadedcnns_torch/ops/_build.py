@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries go to ``_build/`` inside the
-package, named by a hash of the source and the flags, so an edited source
-is rebuilt; a file lock keeps concurrent processes from building the same
-library twice. Nothing is built at import time. A missing ``nvcc`` or a
-failed build raises.
+package, named by a hash of the source, the shared ``csrc/*.cuh`` headers
+and the flags, so an edited source or header is rebuilt; a file lock keeps
+concurrent processes from building the same library twice. Nothing is
+built at import time. A missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -33,6 +33,8 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "resample": ("rodc_resample", [_P, _P, _P, _P] + [_I] * 7 + [_P]),
+    "sched": ("rodc_sched", [_P] * 5 + [_I] * 8 + [_P]),
+    "rowbound": ("rodc_rowbound", [_P] * 5 + [_I] * 10 + [_P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -47,8 +49,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(SRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(SRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(SRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()
     return os.path.join(BUILD_DIR, "lib{}_{}.so".format(name, digest[:16]))
 
 

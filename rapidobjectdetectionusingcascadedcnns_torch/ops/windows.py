@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rapidobjectdetectionusingcascadedcnns_tpu.ops.pyramid import PyramidPlan
+from .pyramid import PyramidPlan
 
 LevelIndex = Tuple[int, int, torch.Tensor, torch.Tensor]
 

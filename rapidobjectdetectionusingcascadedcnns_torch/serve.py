@@ -8,10 +8,9 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
-from rapidobjectdetectionusingcascadedcnns_tpu.ops import nms as nms_ops
-from rapidobjectdetectionusingcascadedcnns_tpu.ops import rectangles as rect_ops
-
 from . import config as cf
+from .ops import nms as nms_ops
+from .ops import rectangles as rect_ops
 
 
 def postprocess_raw(
@@ -23,7 +22,7 @@ def postprocess_raw(
     vertically_enlarge: bool,
     nms_eps: float = 0.2,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Host NMS (groupRectangles, shared numpy/native code) plus optional
+    """Host NMS (groupRectangles, numpy or native code) plus optional
     vertical enlargement (app/inference_app.py:219-231)."""
     if len(boxes) == 0:
         return np.zeros((0, 4), np.float64), np.zeros((0,), np.float64)

@@ -1,8 +1,10 @@
 """Compute-device selection and numerics (counterpart of utils/device.py).
 
 The device is an explicit ``torch.device`` passed to whatever allocates.
-Asking for CUDA on a host without a card raises: there is no quiet fallback
-to the CPU, so a run never reports CPU numbers under a GPU's name.
+The default is the CUDA card; the CPU is used only when a caller asks for
+it (``device="cpu"``, as the CPU tests do). Asking for CUDA, or leaving the
+default, on a host without a card raises: there is no quiet fallback to the
+CPU, so a run never reports CPU numbers under a GPU's name.
 """
 
 from __future__ import annotations
@@ -13,8 +15,9 @@ import torch
 
 
 def resolve_device(name: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """``None`` -> CPU; ``"cuda"``/``"cuda:N"`` -> that card, or raise."""
-    device = torch.device("cpu" if name is None else name)
+    """``None`` -> the CUDA card; ``"cuda"``/``"cuda:N"`` -> that card;
+    ``"cpu"`` -> the CPU. Asking for a card where there is none raises."""
+    device = torch.device("cuda" if name is None else name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device {!r} requested but torch.cuda.is_available() is False".format(

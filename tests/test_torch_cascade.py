@@ -17,6 +17,7 @@ from rapidobjectdetectionusingcascadedcnns_torch.models import cascade as tcasca
 from rapidobjectdetectionusingcascadedcnns_torch.ops import windows_cuda
 
 import torch_parity as tp
+from torch_parity import reset_port_config  # noqa: F401 (autouse fixture)
 
 torch.set_num_threads(2)
 

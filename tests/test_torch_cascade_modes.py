@@ -14,6 +14,7 @@ from rapidobjectdetectionusingcascadedcnns_tpu.ops.color import rgb_to_yuv420
 from rapidobjectdetectionusingcascadedcnns_torch.models import cascade as tcascade
 
 import torch_parity as tp
+from torch_parity import reset_port_config  # noqa: F401 (autouse fixture)
 
 torch.set_num_threads(2)
 

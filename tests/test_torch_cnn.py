@@ -45,7 +45,7 @@ def _run_both(jcfg, jparams, x, bn):
         jparams, jcfg, jnp.asarray(x), None if bn is None else jnp.asarray(bn)
     )
     got = tcnn.apply_stage(
-        bridge.params_from_numpy(jparams),
+        bridge.params_from_numpy(jparams, device="cpu"),
         bridge.stage_config_from_jax(jcfg),
         torch.from_numpy(x),
         None if bn is None else torch.from_numpy(bn),
@@ -82,7 +82,7 @@ def test_checkpoint_round_trip(tmp_path):
     mean = rng.uniform(100, 150, (12, 12, 3)).astype(np.float32)
     std = rng.uniform(40, 70, (12, 12, 3)).astype(np.float32)
     path = checkpoint.save_stage(str(tmp_path / "stage0"), jparams, jcfg, mean, std)
-    params, cfg, mean_t, std_t, meta = bridge.load_stage(path)
+    params, cfg, mean_t, std_t, meta = bridge.load_stage(path, device="cpu")
     assert cfg == bridge.stage_config_from_jax(jcfg)
     assert "stage_config" in meta
     np.testing.assert_array_equal(mean_t, mean)
@@ -111,7 +111,7 @@ def test_load_cascade_round_trip(tmp_path):
     cf.set("compute_dtype", "float32")
     jmodel = jcascade.build_cascade_model(seed=1)
     checkpoint.save_cascade(str(tmp_path), "sess", jmodel)
-    tmodel = bridge.load_cascade(str(tmp_path), "sess")
+    tmodel = bridge.load_cascade(str(tmp_path), "sess", device="cpu")
     assert tmodel.n_nets == jmodel.n_nets == 3
     assert tmodel.input_sizes == [12, 24, 48]
     for i in range(3):
@@ -122,7 +122,7 @@ def test_load_cascade_round_trip(tmp_path):
             np.asarray(jmodel.stage_params[i]["fc2"]["W"]),
         )
     with pytest.raises(FileNotFoundError):
-        bridge.load_cascade(str(tmp_path), "missing")
+        bridge.load_cascade(str(tmp_path), "missing", device="cpu")
 
 
 def test_init_stage_shapes_and_seed():

@@ -1,9 +1,17 @@
-"""Shared helpers of the port-vs-JAX cascade tests (tests/test_torch_cascade*.py)."""
+"""Shared helpers of the port-vs-JAX tests (tests/test_torch_*.py).
+
+The two packages keep separate configurations: ``configure`` sets each key
+on both, and the autouse fixture ``reset_port_config`` (imported by every
+port test module) restores the port's configuration after each test, as
+tests/conftest.py does for the JAX package's.
+"""
 
 import numpy as np
+import pytest
 
-from rapidobjectdetectionusingcascadedcnns_tpu import config as cf
+from rapidobjectdetectionusingcascadedcnns_tpu import config as jcf
 from rapidobjectdetectionusingcascadedcnns_tpu.models import cascade as jcascade
+from rapidobjectdetectionusingcascadedcnns_torch import config as tcf
 from rapidobjectdetectionusingcascadedcnns_torch.models import bridge
 
 # tests/test_golden.py's configuration: small nets, f32, NMS keeping singletons
@@ -11,26 +19,40 @@ GOLDEN_CFG = {
     "conv_filter_sizes": [8],
     "fc1_size": 32,
     "compute_dtype": "float32",
-    "nms": cf.NMS_OPENCV,
+    "nms": jcf.NMS_OPENCV,
     "nms_opencv_min_neighbors": 0,
     "foreground_confidence_threshold": 0.5,
-    # the JAX package's CPU default; named so a TPU run compares like with like
-    "use_pallas_resample": "xla",
 }
+# the JAX package's CPU default resampler, named so a TPU run compares like
+# with like; the port has no counterpart of it (its kernels are K1/K2/K4)
+JAX_ONLY_CFG = {"use_pallas_resample": "xla"}
 PROB_TOL = 2e-3  # the e2e oracle's borderline band |p - threshold| (NOTES.md)
 MAX_FLIP_FRACTION = 0.02  # borderline flips allowed, as a share of survivors
 
 
+@pytest.fixture(autouse=True)
+def reset_port_config():
+    yield
+    tcf.reset()
+
+
 def configure(**extra):
+    """Set GOLDEN_CFG plus ``extra`` on both configurations (and the JAX
+    package's resampler on its own)."""
     for key, value in {**GOLDEN_CFG, **extra}.items():
-        cf.set(key, value)
+        jcf.set(key, value)
+        tcf.set(key, value)
+    for key, value in JAX_ONLY_CFG.items():
+        jcf.set(key, value)
 
 
 def jax_and_port_models(seed=0):
-    """The JAX ``build_cascade_model(seed)`` and its converted port copy."""
+    """The JAX ``build_cascade_model(seed)`` and its converted port copy on
+    the CPU."""
     jmodel = jcascade.build_cascade_model(seed=seed)
     tmodel = bridge.cascade_model_from_jax_arrays(
-        jmodel.stage_params, jmodel.stage_configs, jmodel.stage_means, jmodel.stage_stds
+        jmodel.stage_params, jmodel.stage_configs, jmodel.stage_means, jmodel.stage_stds,
+        device="cpu",
     )
     return jmodel, tmodel
 
