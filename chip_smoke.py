@@ -38,10 +38,25 @@ Phases (each checked; any failure exits non-zero):
      before and read just after each detect call;
   10. card vs CPU in crop mode: one 256x320 frame at scale factor 1.02
      (25,534 windows, 119 levels), f32 with TF32 off, with the default
-     kernels and again with ``dyn_reextract="on"``.
+     kernels and again with ``dyn_reextract="on"``;
+  11. K3 (csrc/cluster.cu) against its plain version on the 16 VGA frames'
+     last-stage survivor boxes and alive masks: from an open-capacity
+     [5061, 4096] run (N = 4096) and from a default-capacity run (N = 256),
+     at eps 0.2 and 0.3 with min_neighbors 1; every output equal;
+  12. the VGA path with the device NMS tail (``nms_on_device``): the 16
+     frames at the default capacities with re-dispatch; raw survivors,
+     final boxes and confidences equal to the host-NMS run of phase 4;
+     K3 launches, and the batch wall with the tail against host NMS;
+  13. the serving bundle: a VGA YUV bundle (batch 16, capacities [5061,
+     4096], one rung, device tail) exported, saved, loaded; its graph holds
+     the ``rodc`` kernel operators; served results equal the live
+     detector's at the same capacities, with K1 and K3 counted. Random
+     weights leave more than 4096 stage-1 survivors in two frames, which
+     the one-rung bundle truncates, so the live detector runs with
+     re-dispatch off and truncates them the same way.
 
 Kernels against plain versions: at most 1e-4 of the values may differ, each
-by at most 1 (bit-exact is expected). The last line of stdout is
+by at most 1 (bit-exact is expected); K3's outputs must be equal. The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel with
 its launches on its path, error, times and bound (K1 once for each path,
 at that path's shapes); the line before that is
@@ -57,11 +72,14 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 N_FRAMES = 16
 IMG_H, IMG_W = 480, 640
+VGA_WINDOWS = 5061
 CAPS_BY_SIZE = {24: 640, 48: 256}  # the VGA path's default capacities
+OPEN_CAPS = [VGA_WINDOWS, 4096]  # the VGA path's open rung
 DENSE_FRAMES = 4
 DENSE_HW = (450, 450)
 DENSE_WSF = 1.005
@@ -138,6 +156,13 @@ def _flips(res_a, res_b):
     return flips, allowed, ids_a, ids_b
 
 
+# K3's bound: about 16 f32 operations per (row, row) pair of a frame (the
+# SimilarRects test); bytes per row in and out: rects 16, valid 1, avg 16,
+# counts 4, keep 1, labels 8
+K3_OPS_PER_PAIR = 16
+K3_BYTES_PER_ROW = 46
+
+
 def _reset_launches():
     for m in _kernel_modules():
         m.LAUNCHES = 0
@@ -146,12 +171,13 @@ def _reset_launches():
 def _kernel_modules():
     """The kernel wrappers, whose ``LAUNCHES`` counts the path's launches."""
     from rapidobjectdetectionusingcascadedcnns_torch.ops import (
+        nms_cuda,
         windows_cuda,
         windows_dyn_cuda,
         windows_sched_cuda,
     )
 
-    return windows_cuda, windows_sched_cuda, windows_dyn_cuda
+    return windows_cuda, windows_sched_cuda, windows_dyn_cuda, nms_cuda
 
 
 def vga_frames(n: int):
@@ -237,8 +263,9 @@ def phase_k1(torch, label, planes, coords, caps_by_size):
 
 
 def phase_vga_path(torch, detector, frames, kind, card):
-    """4. The VGA path at full width; returns K1's launches in one batch."""
-    windows_cuda, windows_sched_cuda, windows_dyn_cuda = _kernel_modules()
+    """4. The VGA path at full width; returns K1's launches in one batch
+    and the counted batch's results."""
+    windows_cuda, windows_sched_cuda, windows_dyn_cuda, nms_cuda = _kernel_modules()
     _quietly(detector.detect_batch_yuv420, frames)  # warm-up (cuDNN/cuBLAS plans)
     detector.redispatches = 0
     torch.cuda.synchronize()
@@ -249,7 +276,7 @@ def phase_vga_path(torch, detector, frames, kind, card):
     launches = windows_cuda.LAUNCHES
     assert len(results) == N_FRAMES
     assert launches >= 2, "K1 was launched {} times on the VGA path".format(launches)
-    assert windows_sched_cuda.LAUNCHES == windows_dyn_cuda.LAUNCHES == 0
+    assert windows_sched_cuda.LAUNCHES == windows_dyn_cuda.LAUNCHES == nms_cuda.LAUNCHES == 0
     for r in results:
         assert r.n_windows == 5061, r.n_windows
         assert r.boxes.ndim == 2 and r.boxes.shape[1] == 4 and bool((r.boxes == r.boxes).all())
@@ -271,7 +298,7 @@ def phase_vga_path(torch, detector, frames, kind, card):
     print("VGA path: 16-frame batch {:.4f} s median of {} (first timed {:.4f} s) = "
           "{:.2f} frames/s on {} [{}]".format(
               med, [round(x, 4) for x in batch_s], first_s, N_FRAMES / med, kind, card))
-    return launches
+    return launches, results
 
 
 def phase_card_vs_cpu_vga(device, frames):
@@ -406,7 +433,7 @@ def _dense_detect(torch, detector, frames, label, kind, card, repeats=3):
     t0 = time.perf_counter()
     results = _quietly(detector.detect_batch, frames)
     walls = [time.perf_counter() - t0]
-    launches = tuple(m.LAUNCHES for m in _kernel_modules())
+    launches = tuple(m.LAUNCHES for m in _kernel_modules()[:3])
     redispatches = detector.redispatches
     for _ in range(repeats - 1):
         torch.cuda.synchronize()
@@ -523,7 +550,7 @@ def phase_card_vs_cpu_crop(device):
         cpu_s = time.perf_counter() - t0
         _reset_launches()
         res_gpu = _quietly(cascade.CascadeDetector(model_gpu).detect, img)
-        launches = tuple(m.LAUNCHES for m in _kernel_modules())
+        launches = tuple(m.LAUNCHES for m in _kernel_modules()[:3])
         assert launches[1] >= 1 and (launches[2] >= 1) == (dyn == "on"), launches
         flips, allowed, ids_cpu, ids_gpu = _flips(res_cpu, res_gpu)
         print("crop card vs cpu (f32, dyn_reextract {}): {} windows over {} levels, "
@@ -538,6 +565,189 @@ def phase_card_vs_cpu_crop(device):
         cf.set(key, value)
 
 
+def _k3_inputs(torch, detector, frames, caps):
+    """K3's inputs on the VGA tail: the last-stage survivor boxes (xywh of
+    ``coords_norm[window_ids]``) and alive masks of one 16-frame run at
+    ``caps``, as (B, caps[-1], 4) f32 and (B, caps[-1]) bool."""
+    entry = detector._plan_and_table(IMG_H, IMG_W)
+    packed = detector._run_chunk(frames, True, caps, entry, None)
+    c = caps[-1]
+    xyxy = entry[2][packed[:, :c].long()].float()
+    rects = torch.cat([xyxy[..., :2], xyxy[..., 2:] - xyxy[..., :2]], dim=-1)
+    return rects.contiguous(), (packed[:, 2 * c : 3 * c] > 0.5).contiguous()
+
+
+def phase_k3(torch, detector, frames):
+    """11. K3 against its plain version at the VGA tail's shapes: N = 4096
+    (open capacities) and N = 256 (default capacities), eps 0.2 and 0.3."""
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import nms, nms_cuda
+
+    out = {}
+    for caps in (OPEN_CAPS, [CAPS_BY_SIZE[24], CAPS_BY_SIZE[48]]):
+        rects, alive = _k3_inputs(torch, detector, frames, caps)
+        b, n = alive.shape
+        err = 0.0
+        for eps in (0.2, 0.3):
+            got = nms_cuda.group_rectangles_cuda(rects, alive, 1, eps)
+            ref = nms.group_rectangles_device_plain(rects, alive, 1, eps)
+            torch.cuda.synchronize()
+            for name, g, r in zip(("avg", "counts", "keep", "labels"), got, ref):
+                assert g.shape == r.shape and g.dtype == r.dtype, (name, g.shape, r.shape)
+                n_bad = int((g != r).sum())
+                assert n_bad == 0, ("K3", n, eps, name, n_bad)
+                err = max(err, float((g.double() - r.double()).abs().max()))
+            print("K3 N={} eps {}: {} survivors, {} clusters kept of {} with count > 1 "
+                  "(frames {}), {} propagation steps (the JAX tail's {}); avg, counts, keep, "
+                  "labels equal".format(
+                      n, eps, int(alive.sum()), int(got[2].sum()),
+                      int(((got[3] == torch.arange(n, device=rects.device)) & alive
+                           & (got[1] > 1)).sum()), b, nms_cuda.LAST_STEPS,
+                      nms.propagation_steps(n)))
+            del got, ref
+        ms = _median_ms(lambda: nms_cuda.group_rectangles_cuda(rects, alive, 1, 0.2), torch)
+        pms = _median_ms(lambda: nms.group_rectangles_device_plain(rects, alive, 1, 0.2), torch,
+                         warmup=1, iters=3)
+        ops_ms = b * n * n * K3_OPS_PER_PAIR / F32_OPS_PER_S * 1e3
+        bytes_ms = b * n * K3_BYTES_PER_ROW / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+        print("K3 {} frames x N={}: kernel {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms ({}; "
+              "bytes {:.6f} ms)".format(b, n, ms, pms, bound_ms, bound_by, bytes_ms))
+        out[n] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bound_ms,
+                  "bound_by": bound_by}
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sorted_rows(a):
+    return sorted(map(tuple, a.tolist()))
+
+
+def phase_vga_tail(torch, detector, frames, host_results, kind, card):
+    """12. The VGA path with the device NMS tail at the default capacities,
+    against the host-NMS run of phase 4. Returns K3's launches."""
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+
+    windows_cuda, _, _, nms_cuda = _kernel_modules()
+    cf.set("nms_on_device", True)
+    _quietly(detector.detect_batch_yuv420, frames)  # warm-up
+    detector.redispatches = 0
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = _quietly(detector.detect_batch_yuv420, frames)
+    first_s = time.perf_counter() - t0
+    k3, k1, reruns = nms_cuda.LAUNCHES, windows_cuda.LAUNCHES, detector.redispatches
+    assert k3 == 1 + reruns, (k3, reruns)
+    for r, h in zip(results, host_results):
+        assert r.raw_window_ids.tolist() == h.raw_window_ids.tolist()
+        assert _sorted_rows(r.boxes) == _sorted_rows(h.boxes), (len(r.boxes), len(h.boxes))
+        assert sorted(r.confidences.tolist()) == sorted(h.confidences.tolist())
+    walls = {True: [], False: []}
+    for on in (False, True, True, False):  # in turns: host, tail, tail, host
+        cf.set("nms_on_device", on)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _quietly(detector.detect_batch_yuv420, frames)
+        walls[on].append(time.perf_counter() - t0)
+    cf.set("nms_on_device", False)
+    print("VGA tail: K3 launches {} (1 batch + {} re-runs), K1 launches {}; raw survivors, "
+          "boxes and confidences equal to host NMS on all {} frames; detections per frame {}".format(
+              k3, reruns, k1, len(results), [len(r.boxes) for r in results]))
+    print("VGA tail: 16-frame batch with the device tail {} s (first timed {:.4f} s), with host "
+          "NMS {} s, on {} [{}]".format([round(x, 4) for x in walls[True]], first_s,
+                                         [round(x, 4) for x in walls[False]], kind, card))
+    return k3
+
+
+def phase_bundle(torch, model, frames, kind, card):
+    """13. A VGA YUV serving bundle with the device tail: export, save,
+    load, serve; equal to the live detector at the same capacities, both
+    truncating a saturated frame (the live detector with re-dispatch off,
+    the bundle at its top rung). Then, for information, one saturated
+    frame's re-run alone (as the live detector re-dispatches it) against
+    the same frame in a padded 16-frame batch (as a bundle's rung ladder
+    re-runs it)."""
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch import serve
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+
+    windows_cuda, _, _, nms_cuda = _kernel_modules()
+    caps = OPEN_CAPS
+    cf.set("nms_on_device", True)
+    # re-dispatch off for both: the live detector keeps truncated results,
+    # and both resolve the compaction it implies ("rank")
+    cf.set("cascade_saturation_redispatch", False)
+    live_det = cascade.CascadeDetector(model, capacity_schedule=caps)
+    live = _quietly(live_det.detect_batch_yuv420, frames)
+    t0 = time.perf_counter()
+    bundle = serve.export_detector(model, IMG_H, IMG_W, batch=N_FRAMES, yuv=True,
+                                   capacities=caps, n_rungs=1)
+    export_s = time.perf_counter() - t0
+    cf.set("cascade_saturation_redispatch", True)
+    cf.set("nms_on_device", False)  # the served program must not read it
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        serve.save_bundle(bundle, d)
+        save_s = time.perf_counter() - t0
+        size_mb = sum(f.stat().st_size for f in __import__("pathlib").Path(d).iterdir()) / 1e6
+        t0 = time.perf_counter()
+        served_det = serve.load_bundle(d)
+        load_s = time.perf_counter() - t0
+    targets = [str(n.target) for n in served_det.programs[0].graph.nodes if n.op == "call_function"]
+    n_resample, n_cluster = targets.count("rodc.resample.default"), targets.count(
+        "rodc.cluster.default")
+    assert n_resample == 2 and n_cluster == 1, (n_resample, n_cluster)
+    _quietly(served_det.detect_batch, frames)  # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    served = _quietly(served_det.detect_batch, frames)
+    served_s = time.perf_counter() - t0
+    k1, k3 = windows_cuda.LAUNCHES, nms_cuda.LAUNCHES
+    assert k1 == 2 and k3 == 1, (k1, k3)
+    saturated = [i for i, r in enumerate(live)
+                 if cascade.CascadeDetector._is_saturated(r.n_survivors_per_stage, caps)]
+    bad = [
+        (i, len(set(a.raw_window_ids.tolist()) ^ set(b.raw_window_ids.tolist())),
+         len(a.boxes), len(b.boxes))
+        for i, (a, b) in enumerate(zip(live, served))
+        if not (a.raw_window_ids.tolist() == b.raw_window_ids.tolist()
+                and a.raw_confidences.tolist() == b.raw_confidences.tolist()
+                and a.boxes.tolist() == b.boxes.tolist()
+                and a.confidences.tolist() == b.confidences.tolist()
+                and a.n_survivors_per_stage == b.n_survivors_per_stage)
+    ]
+    assert not bad, ("bundle vs live: (frame, raw id flips, boxes live, boxes served)", bad)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _quietly(served_det.detect_batch, frames)
+        walls.append(time.perf_counter() - t0)
+    print("bundle: graph holds {} rodc.resample and {} rodc.cluster nodes; {:.1f} MB on disk; "
+          "served results equal to the live detector on all {} frames (frames {} truncated "
+          "at the top rung by both); K1 {} K3 {} launches".format(
+              n_resample, n_cluster, size_mb, len(served), saturated, k1, k3))
+    if saturated:
+        # the live detector re-runs a saturated frame alone, a bundle's
+        # ladder in a padded batch: other GEMM shapes, other bf16 roundings
+        i = saturated[0]
+        wider = cascade.escalate_capacities(caps, VGA_WINDOWS)
+        entry = live_det._plan_and_table(IMG_H, IMG_W)
+        alone = live_det._run_chunk([frames[i]], True, wider, entry, None)[0]
+        padded = live_det._run_chunk([frames[i]] * N_FRAMES, True, wider, entry, None)[0]
+        c = wider[-1]
+        ids_a = set(alone[:c][alone[2 * c : 3 * c] > 0.5].long().tolist())
+        ids_p = set(padded[:c][padded[2 * c : 3 * c] > 0.5].long().tolist())
+        print("bundle: frame {} at {} alone vs in a padded batch of {}: {} survivor flips of {}, "
+              "max |conf diff| {:.3g}".format(
+                  i, wider, N_FRAMES, len(ids_a ^ ids_p), len(ids_a),
+                  float((alone[c : 2 * c] - padded[c : 2 * c]).abs().max())))
+    print("bundle: export {:.4f} s, save {:.4f} s, load {:.4f} s, served 16-frame batch {:.4f} s "
+          "(counted) then {} s, on {} [{}]".format(export_s, save_s, load_s, served_s,
+                                                   [round(x, 4) for x in walls], kind, card))
+
+
 def _kernel_line(name, source, replaces, launches, m):
     return {
         "name": name,
@@ -550,7 +760,8 @@ def _kernel_line(name, source, replaces, launches, m):
         "plain_ms": m["plain_ms"],
         "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"],
-        # no single PyTorch call keeps the kernels' two bf16 rounding points
+        # no single PyTorch call keeps K1's, K2's and K4's two bf16 rounding
+        # points, and none computes K3's groupRectangles
         "library_ms": None,
     }
 
@@ -599,7 +810,7 @@ def main() -> int:
     frames = vga_frames(N_FRAMES)
     k1_vga = phase_k1(torch, "VGA", *vga_k1_inputs(torch, device, detector, frames),
                       CAPS_BY_SIZE)
-    k1_vga_launches = phase_vga_path(torch, detector, frames, kind, card)
+    k1_vga_launches, host_results = phase_vga_path(torch, detector, frames, kind, card)
     phase_card_vs_cpu_vga(device, frames)
 
     # ---- 6-10. the dense path ----------------------------------------------
@@ -615,6 +826,13 @@ def main() -> int:
         torch, device, model, dense, kind, card
     )
     phase_card_vs_cpu_crop(device)
+    torch.cuda.empty_cache()
+
+    # ---- 11-13. the serving path ---------------------------------------------
+    k3 = phase_k3(torch, detector, frames)
+    k3_launches = phase_vga_tail(torch, detector, frames, host_results, kind, card)
+    torch.cuda.empty_cache()
+    phase_bundle(torch, model, frames, kind, card)
 
     loaded = sorted(
         m for m in sys.modules
@@ -631,6 +849,8 @@ def main() -> int:
                      "ops/windows_sched.py:259", k2_launches, k2),
         _kernel_line("K4 row-bounded re-extraction (dyn_reextract)", "rowbound.cu",
                      "ops/windows_dyn.py:83", k4_launches, k4),
+        _kernel_line("K3 groupRectangles clustering (VGA device NMS tail, N=4096)",
+                     "cluster.cu", "ops/nms_pallas.py:33", k3_launches, k3[OPEN_CAPS[-1]]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

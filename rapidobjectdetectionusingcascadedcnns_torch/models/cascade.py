@@ -19,7 +19,10 @@ Per chunk of same-size frames, every stage runs once for all frames:
   stage i:  CNN with the previous stage's bottleneck concat -> probs ->
             alive mask and LAST/AVG/MULT confidence accumulation
   last:     one packed float32 row per frame leaves the device; NMS runs on
-            the host (numpy/native groupRectangles).
+            the host (numpy/native groupRectangles), or with
+            ``nms_on_device`` on the device as a tail of the same program:
+            groupRectangles over every frame's last-stage survivors, kernel
+            K3 (ops/nms_cuda.py), one launch for the chunk.
 
 Capacities are fixed per dispatch; a frame whose survivors overflow a buffer
 is re-run alone with doubled capacities (saturation re-dispatch), so the
@@ -28,8 +31,7 @@ overflow is saturation too, and ends in a re-run with K1 if escalation
 cannot cure it.
 
 Not ported yet, and raising ``NotImplementedError`` rather than being
-rerouted: the on-device NMS tail (ROADMAP Queue A item 6, kernel K3) and
-meshes (item 11).
+rerouted: meshes (ROADMAP Queue A item 11).
 """
 
 from __future__ import annotations
@@ -204,13 +206,9 @@ def resolve_resample_impl() -> str:
     return impl
 
 
-def _check_ported_path() -> None:
-    """Refuse configurations whose path is not ported yet."""
-    if cf.get("nms_on_device") and cf.get("nms") == cf.NMS_OPENCV:
-        raise NotImplementedError(
-            "nms_on_device: the on-device NMS tail is not ported yet "
-            "(ROADMAP Queue A item 6, kernel K3)"
-        )
+def resolve_nms_on_device() -> bool:
+    """``nms_on_device`` takes effect with OpenCV-style NMS only."""
+    return bool(cf.get("nms_on_device")) and cf.get("nms") == cf.NMS_OPENCV
 
 
 def _compact_indices(alive: torch.Tensor, p_fg: torch.Tensor, cap: int, compaction: str):
@@ -342,6 +340,8 @@ def cascade_core(
     indices=None,
     extraction_mode: str = "gather",
     resample_impl: str = "pallas2",
+    nms_min_neighbors: int = -1,
+    nms_eps: float = 0.2,
 ):
     """Full cascade over a chunk of frames.
 
@@ -351,7 +351,11 @@ def cascade_core(
     ``window_ids`` (B, C_last) int64, ``conf`` (B, C_last) f32, ``alive``
     (B, C_last) bool and ``diagnostics`` (B, 2 * n_stages - 1): per-stage
     pre-compaction survivor counts, then per-re-extract K4 big-class
-    overflow counts (0 where K4 did not run).
+    overflow counts (0 where K4 did not run). With ``nms_min_neighbors >=
+    0`` the groupRectangles tail runs too (``rodc::cluster``, kernel K3,
+    once for the chunk) and the tuple gains ``cluster_xywh`` (B, C_last, 4)
+    int32, ``cluster_weights`` (B, C_last) int32 and ``cluster_keep``
+    (B, C_last) bool.
     """
     n_stages = len(stage_configs)
     b = images.shape[0]
@@ -426,15 +430,30 @@ def cascade_core(
         conf = torch.clamp(conf, min=cf.MIN_SCORE_FOR_FINAL_CONFIDENCE_CALCULATION_MULT)
 
     diagnostics = torch.stack(survivors + overflows, dim=1)
-    return window_ids, conf, alive, diagnostics
+    if nms_min_neighbors < 0:
+        return window_ids, conf, alive, diagnostics
 
+    from ..ops import nms_cuda
 
-def pack_result(window_ids, conf, alive, diagnostics) -> torch.Tensor:
-    """One float32 row per frame, so the host reads back one buffer:
-    [ids (C), conf (C), alive (C), diagnostics (2 * n_stages - 1)]."""
-    return torch.cat(
-        [window_ids.float(), conf.float(), alive.float(), diagnostics.float()], dim=1
+    final = coords_norm[window_ids].float()  # (B, C_last, 4) xyxy
+    xywh = torch.stack(
+        [final[..., 0], final[..., 1], final[..., 2] - final[..., 0], final[..., 3] - final[..., 1]],
+        dim=-1,
     )
+    avg, weights, keep, _ = nms_cuda.group_rectangles(xywh, alive, nms_min_neighbors, nms_eps)
+    return window_ids, conf, alive, diagnostics, avg, weights, keep
+
+
+def pack_result(window_ids, conf, alive, diagnostics, *nms_tail) -> torch.Tensor:
+    """One float32 row per frame, so the host reads back one buffer:
+    [ids (C), conf (C), alive (C), diagnostics (2 * n_stages - 1)], plus
+    with the device NMS tail [xywh (C, 4) row-major, weights (C), keep
+    (C)]."""
+    parts = [window_ids.float(), conf.float(), alive.float(), diagnostics.float()]
+    if nms_tail:
+        avg, weights, keep = nms_tail
+        parts += [avg.float().reshape(avg.shape[0], -1), weights.float(), keep.float()]
+    return torch.cat(parts, dim=1)
 
 
 class CascadeDetector:
@@ -547,7 +566,8 @@ class CascadeDetector:
         """Upload one chunk of frames and enqueue its cascade; returns the
         packed (B, row) tensor on the device (not yet synchronised).
         ``resample`` overrides the configured kernels (the K1 re-run after
-        a K4 overflow)."""
+        a K4 overflow). With ``nms_on_device`` the program ends in the
+        groupRectangles tail."""
         plan, _, coords_norm, boxes_float, _ = entry
         mode = resolve_extraction_mode(plan)
         if yuv:
@@ -574,6 +594,8 @@ class CascadeDetector:
             self._level_indices(entry) if mode == "gather" else None,
             mode,
             resample or resolve_resample_impl(),
+            int(cf.get("nms_opencv_min_neighbors")) if resolve_nms_on_device() else -1,
+            float(cf.get("nms_opencv_eps")),
         )
         return pack_result(*out)
 
@@ -581,7 +603,6 @@ class CascadeDetector:
         """Same-size frames go through one batched cascade per chunk of
         ``inference_batch_frames``; up to ``inference_pipeline_depth`` chunks
         are enqueued before the oldest is read back."""
-        _check_ported_path()
         resolve_resample_impl()  # refuse an unported choice before any upload
         max_frames = int(cf.get("inference_batch_frames"))
         depth = max(1, int(cf.get("inference_pipeline_depth")))
@@ -638,6 +659,7 @@ class CascadeDetector:
             self.model.n_nets,
             plan,
             table,
+            resolve_nms_on_device(),
             nms_mode=str(cf.get("nms")),
             nms_min_neighbors=int(cf.get("nms_opencv_min_neighbors")),
             nms_eps=float(cf.get("nms_opencv_eps")),

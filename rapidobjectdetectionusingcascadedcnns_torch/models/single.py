@@ -25,7 +25,6 @@ from . import cnn
 from .cascade import (
     DetectionResult,
     _apply_stage_rows,
-    _check_ported_path,
     _stage0_apply,
     _stage0_schedule,
     resolve_extraction_mode,
@@ -81,7 +80,6 @@ class SingleNetDetector:
     def detect_batch(self, images: Sequence[np.ndarray]) -> List[DetectionResult]:
         """Same-size frames go through stage 0 together, in chunks of
         ``inference_batch_frames``."""
-        _check_ported_path()
         max_frames = int(cf.get("inference_batch_frames"))
         results: List[Optional[DetectionResult]] = [None] * len(images)
         by_size: Dict[Tuple[int, int], List[int]] = {}

@@ -29,12 +29,14 @@ NVCC_FLAGS = (
 )
 
 # C signatures of the kernels' entry points: pointers and the stream as
-# c_void_p (a plain int would be cut to 32 bits), ints as c_int.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# c_void_p (a plain int would be cut to 32 bits), ints as c_int, floats as
+# c_float.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "resample": ("rodc_resample", [_P, _P, _P, _P] + [_I] * 7 + [_P]),
     "sched": ("rodc_sched", [_P] * 5 + [_I] * 8 + [_P]),
     "rowbound": ("rodc_rowbound", [_P] * 5 + [_I] * 10 + [_P]),
+    "cluster": ("rodc_cluster", [_I] + [_P] * 13 + [_I] * 4 + [_F, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -20,8 +20,10 @@ clustering*, not score-sorted greedy NMS. Semantics reproduced here:
 
 The port's copy of the host half of the JAX package's ``ops/nms.py``:
 :func:`group_rectangles` (vectorized numpy), :func:`group_rectangles_fast`
-(the native C++ kernel when it builds) and :func:`nms_boxes`. The
-on-device variant is not ported yet (ROADMAP Queue A item 6).
+(the native C++ kernel when it builds) and :func:`nms_boxes`. The device
+half, :func:`group_rectangles_device_plain`, is the plain version of
+kernel K3 (``ops/nms_cuda.py``), batched over frames: the on-device NMS
+tail of the cascade (``nms_on_device``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,11 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
+
+# Cluster coordinate sums must stay below this for the f32 sums of the
+# JAX tail (a HIGHEST-precision matmul) to be exact.
+SUM_LIMIT = 1 << 24
 
 
 def _similarity_matrix(xywh: np.ndarray, eps: float) -> np.ndarray:
@@ -115,6 +122,115 @@ def group_rectangles(
     rejected = (inside & stronger).any(axis=1)
 
     return cls_rects[~rejected], cls_weights[~rejected]
+
+
+def propagation_steps(n: int) -> int:
+    """The JAX tail's min-label propagation steps at N rows,
+    ``max(1, ceil(log2(max(N, 2))) + 1)``: the device tail's first round."""
+    return max(1, int(np.ceil(np.log2(max(n, 2)))) + 1)
+
+
+def group_rectangles_device_plain(
+    rects: torch.Tensor, valid: torch.Tensor, min_neighbors: int, eps: float = 0.2
+):
+    """Plain version of kernel K3: ``group_rectangles_jax`` (the JAX
+    package's ``ops/nms.py:124-209``) batched over frames, with the label
+    propagation run to convergence.
+
+    ``rects`` (B, N, 4) float32 xywh with integer values, ``valid`` (B, N)
+    bool. Returns ``avg`` (B, N, 4) int32 (every member row carries its
+    cluster's rounded mean), ``counts`` (B, N) int32 (0 on invalid rows),
+    ``keep`` (B, N) bool (one representative per surviving cluster, after
+    the containment pass) and ``labels`` (B, N) int64 (N on invalid rows).
+
+    The JAX rounding points: ``delta = f32(eps * 0.5) * (min w + min h)``;
+    steps of a neighbour-min then a pointer jump, each reading the labels
+    from before it, ``propagation_steps(N)`` of them as in the JAX tail and
+    then more until a step changes nothing. The JAX tail stops after its
+    fixed count, which leaves a long chain of similar boxes split (the
+    full-width VGA survivors of random weights need 21 steps at N = 4096,
+    not 13); the fixed point is the connected components, each label the
+    least row of its component, as the host union-find finds them. Sums exact
+    (integer coordinates, every cluster sum below ``SUM_LIMIT``, else
+    ``ValueError``), ``rint`` of the f32 quotient; containment with the
+    fixed tolerance ``rint(f32(0.2) * container size)``.
+    """
+    rects = rects.float()
+    valid = valid.bool()
+    b, n = valid.shape
+    dev = rects.device
+    if n == 0:
+        return (
+            torch.zeros(b, 0, 4, dtype=torch.int32, device=dev),
+            torch.zeros(b, 0, dtype=torch.int32, device=dev),
+            torch.zeros(b, 0, dtype=torch.bool, device=dev),
+            torch.zeros(b, 0, dtype=torch.int64, device=dev),
+        )
+    if bool(((rects != torch.round(rects)) & valid[..., None]).any()):
+        raise ValueError("the device NMS tail takes integer coordinates")
+    x, y, w, h = rects.unbind(-1)
+    half_eps = torch.tensor(eps * 0.5, dtype=torch.float32, device=dev)
+    delta = half_eps * (
+        torch.minimum(w[:, :, None], w[:, None, :]) + torch.minimum(h[:, :, None], h[:, None, :])
+    )
+
+    def close(a):
+        return (a[:, :, None] - a[:, None, :]).abs() <= delta
+
+    adj = close(x) & close(y) & close(x + w) & close(y + h)
+    adj &= valid[:, :, None] & valid[:, None, :]
+    del delta
+
+    idx = torch.arange(n, device=dev)
+    labels = torch.where(valid, idx, n)
+    pad = torch.full((b, 1), n, dtype=labels.dtype, device=dev)
+    step = 0
+    while True:
+        prev = labels
+        labels = torch.minimum(labels, torch.where(adj, labels[:, None, :], n).amin(dim=2))
+        ext = torch.cat([labels, pad], dim=1)
+        labels = torch.minimum(labels, torch.gather(ext, 1, labels))
+        step += 1
+        if step >= propagation_steps(n) and torch.equal(labels, prev):
+            break
+    del adj
+
+    # per-cluster counts and sums in the slot of the cluster's label (slot
+    # N collects the invalid rows); integers are exact in float64
+    slot_counts = torch.zeros(b, n + 1, dtype=torch.int64, device=dev)
+    slot_counts.scatter_add_(1, labels, valid.long())
+    counts = torch.where(valid, torch.gather(slot_counts, 1, labels), 0)
+    lab4 = labels[..., None].expand(b, n, 4)
+    slot_sums = torch.zeros(b, n + 1, 4, dtype=torch.float64, device=dev)
+    slot_sums.scatter_add_(1, lab4, rects.double() * valid[..., None])
+    sums = torch.gather(slot_sums, 1, lab4)
+    if bool(((sums.abs() >= SUM_LIMIT) & valid[..., None]).any()):
+        raise ValueError("a cluster's coordinate sum reaches 2^24")
+    avg = torch.where(
+        counts[..., None] > 0,
+        torch.round(sums.float() / counts.clamp(min=1).float()[..., None]),
+        0.0,
+    ).to(torch.int32)
+    keep = (labels == idx) & valid & (counts > min_neighbors)
+
+    # phase-2 containment among the kept representatives, tolerance from
+    # the container's size (OpenCV groupRectangles)
+    xa, ya, wa, ha = avg.float().unbind(-1)
+    c02 = torch.tensor(0.2, dtype=torch.float32, device=dev)
+    dx, dy = torch.round(wa * c02), torch.round(ha * c02)
+    inside = (
+        (xa[:, :, None] >= (xa - dx)[:, None, :])
+        & (ya[:, :, None] >= (ya - dy)[:, None, :])
+        & ((xa + wa)[:, :, None] <= ((xa + wa) + dx)[:, None, :])
+        & ((ya + ha)[:, :, None] <= ((ya + ha) + dy)[:, None, :])
+        & keep[:, :, None]
+        & keep[:, None, :]
+        & ~torch.eye(n, dtype=torch.bool, device=dev)
+    )
+    cnt = counts.float()
+    stronger = (cnt[:, None, :] > torch.clamp(cnt, min=3.0)[:, :, None]) | (cnt[:, :, None] < 3.0)
+    keep = keep & ~(inside & stronger).any(dim=2)
+    return avg, counts.to(torch.int32), keep, labels
 
 
 def group_rectangles_fast(

@@ -82,12 +82,12 @@ def crop_and_resize(
 ) -> torch.Tensor:
     """K1's wrapper at the box interface: ``images`` (B, H, W, C) float32,
     ``boxes`` (B, N, 4) xyxy -> (B, N, out_h, out_w, C) float32 on the u8
-    lattice. The kernel for a CUDA tensor, the plain version for a CPU
-    tensor."""
+    lattice. Through the ``rodc::resample`` operator (ops/library.py):
+    the kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    from . import library  # noqa: F401 (registers the operator)
+
     sy, sx = windows.sample_positions(
         boxes, images.shape[1], images.shape[2], out_h, out_w
     )
     planes = windows.to_planes_bf16(images)
-    if images.is_cuda:
-        return crop_and_resize_cuda(planes, sy.contiguous(), sx.contiguous())
-    return windows.resample_plain(planes, sy, sx)
+    return torch.ops.rodc.resample(planes, sy.contiguous(), sx.contiguous())

@@ -394,14 +394,11 @@ def extract_scheduled(
                 sched.img_h, sched.img_w, h, w
             )
         )
+    from . import library  # noqa: F401 (registers the operator)
+
     sy_local, sx_local, tiles = scheduled_positions(boxes, sched, images.device)
     planes = windows.to_planes_bf16(images)
-    if images.is_cuda:
-        from . import windows_sched_cuda
-
-        out = windows_sched_cuda.resample_sched_cuda(planes, sy_local, sx_local, tiles, sched.tile)
-    else:
-        out = resample_sched_plain(planes, sy_local, sx_local, tiles, sched.tile)
+    out = torch.ops.rodc.sched(planes, sy_local, sx_local, tiles, sched.tile)
     if reorder:
         return out[:, torch.as_tensor(sched.positions, device=out.device)]
     return out

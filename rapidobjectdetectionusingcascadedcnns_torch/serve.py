@@ -1,16 +1,59 @@
-"""Decoding of the cascade's packed result rows (counterpart of the decoder
-half of serve.py, lines 59-148). Bundle export and loading are not ported
-yet (ROADMAP Queue A item 9)."""
+"""Serving bundles: the cascade program as a deployable artifact, and the
+decoder of its packed result rows (counterpart of serve.py).
+
+A bundle holds the batched cascade program exported with ``torch.export``
+once per rung of a *capacity ladder*: the base survivor capacities and
+each escalation the live detector would re-dispatch to on saturation
+(``models/cascade.escalate_capacities``). The serving loop walks the
+ladder as ``CascadeDetector`` walks its doubling loop; a top-rung
+saturation warns and keeps the truncated result. The kernels enter each
+program as single graph nodes, the custom operators of ``ops/library.py``
+(K1 ``rodc::resample``, K2 ``rodc::sched``, K3 ``rodc::cluster`` for the
+on-device NMS tail), so a loaded program runs the same kernels as the live
+detector.
+
+Every config knob is resolved at export time and written to ``meta.json``:
+the serving side reads no config. The weights, pre-cast to the compute
+dtype as the live detector casts them, ride in the bundle once
+(``weights.npz``) and enter every rung's program as one list input.
+
+Layout on disk (``save_bundle``)::
+
+    <dir>/meta.json        everything serving needs, config-free
+    <dir>/weights.npz      flat weight arrays, shared by all rungs
+    <dir>/program_0.pt2    torch.export program at base capacities
+    <dir>/program_1.pt2    ... first escalation rung, etc.
+
+Not ported yet, and raising ``NotImplementedError``: a dynamic batch and
+programs for another device than the export device (ROADMAP Queue A item
+9b), meshes and window-sharded bundles (item 11).
+"""
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import json
+import os
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from . import config as cf
+from .models import cascade as casc
+from .models import cnn
+from .models.cascade import CascadeModel, DetectionResult
+from .ops import library  # noqa: F401 (registers the kernels' operators before loading)
 from .ops import nms as nms_ops
 from .ops import rectangles as rect_ops
+from .ops.color import yuv420_to_rgb
+from .ops.pyramid import build_plan, window_table
+from .ops.windows import level_indices
+from .utils import log
+from .utils.device import resolve_device, set_numerics
+
+FORMAT_VERSION = 1
+PROGRAM_FORMAT = "torch.export"
 
 
 def postprocess_raw(
@@ -44,17 +87,18 @@ def unpack_packed_row(
     n_stages: int,
     plan,
     table,
+    nms_on_device: bool,
     *,
     nms_mode: str,
     nms_min_neighbors: int,
     vertically_enlarge: bool,
     nms_eps: float = 0.2,
-):
+) -> DetectionResult:
     """Decode one frame's packed vector (models/cascade.pack_result layout:
-    ids, confidences, alive, then per-stage survivor counts and per-stage
-    re-extract overflow counts) into a ``DetectionResult``."""
-    from .models.cascade import DetectionResult
-
+    ids, confidences, alive, per-stage survivor counts, per-stage
+    re-extract overflow counts, and with the device NMS tail the clusters'
+    xywh, weights and keep flags) into a ``DetectionResult``. Config-free,
+    so the live detector and a bundle share one decoder."""
     cap_last = capacities[-1] if capacities else plan.n_windows
     window_ids = row[:cap_last].astype(np.int64)
     conf = row[cap_last : 2 * cap_last]
@@ -65,14 +109,27 @@ def unpack_packed_row(
     keep_ids = window_ids[alive]
     raw_boxes = table["coords_norm"][keep_ids]
     raw_conf = conf[alive]
-    boxes, confidences = postprocess_raw(
-        raw_boxes,
-        raw_conf,
-        nms_mode=nms_mode,
-        nms_min_neighbors=nms_min_neighbors,
-        vertically_enlarge=vertically_enlarge,
-        nms_eps=nms_eps,
-    )
+    if nms_on_device:
+        tail = row[base + 2 * n_stages - 1 :]
+        cl_keep = tail[5 * cap_last : 6 * cap_last] > 0.5
+        cl_xywh = tail[: 4 * cap_last].reshape(cap_last, 4)[cl_keep]
+        cl_w = tail[4 * cap_last : 5 * cap_last][cl_keep]
+        boxes = np.stack(
+            [cl_xywh[:, 0], cl_xywh[:, 1], cl_xywh[:, 0] + cl_xywh[:, 2], cl_xywh[:, 1] + cl_xywh[:, 3]],
+            axis=1,
+        ).astype(np.float64)
+        confidences = cl_w.astype(np.float64)
+        if vertically_enlarge and len(boxes):
+            boxes = rect_ops.vertically_enlarge(boxes, enlarge_top=0.2)
+    else:
+        boxes, confidences = postprocess_raw(
+            raw_boxes,
+            raw_conf,
+            nms_mode=nms_mode,
+            nms_min_neighbors=nms_min_neighbors,
+            vertically_enlarge=vertically_enlarge,
+            nms_eps=nms_eps,
+        )
     return DetectionResult(
         boxes=boxes,
         confidences=confidences,
@@ -83,3 +140,436 @@ def unpack_packed_row(
         raw_window_ids=keep_ids,
         reextract_overflows=overflows,
     )
+
+
+@dataclass
+class ServingBundle:
+    """An exported cascade: config-free metadata, the flat weights (shared
+    by all rungs) and one ``torch.export`` program per capacity rung."""
+
+    meta: dict
+    weights: List[torch.Tensor]
+    programs: List[torch.export.ExportedProgram]
+
+
+def flatten_params(stage_params: Sequence[cnn.Params]) -> List[torch.Tensor]:
+    """Stage parameter dictionaries -> one flat list (per stage: each conv
+    layer's W and b, then fc1's, then fc2's)."""
+    flat = []
+    for p in stage_params:
+        for layer in p["conv"]:
+            flat += [layer["W"], layer["b"]]
+        flat += [p["fc1"]["W"], p["fc1"]["b"], p["fc2"]["W"], p["fc2"]["b"]]
+    return flat
+
+
+def unflatten_params(flat: Sequence[torch.Tensor], stage_configs) -> Tuple[cnn.Params, ...]:
+    """The inverse of :func:`flatten_params`."""
+    out, k = [], 0
+    for c in stage_configs:
+        n_conv = len(c.conv_filter_sizes)
+        conv = [{"W": flat[k + 2 * i], "b": flat[k + 2 * i + 1]} for i in range(n_conv)]
+        k += 2 * n_conv
+        out.append({
+            "conv": conv,
+            "fc1": {"W": flat[k], "b": flat[k + 1]},
+            "fc2": {"W": flat[k + 2], "b": flat[k + 3]},
+        })
+        k += 4
+    return tuple(out)
+
+
+class _CascadeProgram(torch.nn.Module):
+    """The batched cascade at one rung's capacities, every knob fixed; the
+    pyramid tables and standardisation stats are buffers, the weights an
+    input. ``forward`` takes uint8 frames and returns the packed rows."""
+
+    def __init__(self, tables: dict, knobs: dict, capacities: Sequence[int]):
+        super().__init__()
+        self.knobs = knobs
+        self.capacities = tuple(int(c) for c in capacities)
+        self.register_buffer("coords_norm", tables["coords_norm"])
+        self.register_buffer("boxes_float", tables["boxes_float"])
+        for k, (mean, std) in enumerate(tables["stats"]):
+            self.register_buffer("mean{}".format(k), mean)
+            self.register_buffer("std{}".format(k), std)
+        self.level_sizes = None
+        if tables["indices"] is not None:
+            self.level_sizes = [(sh, sw) for sh, sw, _, _ in tables["indices"]]
+            for k, (_, _, ys, xs) in enumerate(tables["indices"]):
+                self.register_buffer("ys{}".format(k), ys)
+                self.register_buffer("xs{}".format(k), xs)
+
+    def run(self, images: torch.Tensor, flat: List[torch.Tensor]) -> torch.Tensor:
+        kn = self.knobs
+        configs = kn["stage_configs"]
+        stats = tuple(
+            (getattr(self, "mean{}".format(k)), getattr(self, "std{}".format(k)))
+            for k in range(len(configs))
+        )
+        indices = None
+        if self.level_sizes is not None:
+            indices = [
+                (sh, sw, getattr(self, "ys{}".format(k)), getattr(self, "xs{}".format(k)))
+                for k, (sh, sw) in enumerate(self.level_sizes)
+            ]
+        out = casc.cascade_core(
+            images, self.coords_norm, self.boxes_float, unflatten_params(flat, configs), stats,
+            kn["plan"], configs, self.capacities, kn["confidence_mode"], kn["thresholds"],
+            kn["high_precision"], kn["chunk"], kn["compaction"], indices,
+            kn["extraction_mode"], kn["resample_impl"], kn["nms_mn"], kn["nms_eps"],
+        )
+        return casc.pack_result(*out)
+
+
+class _RgbProgram(_CascadeProgram):
+    def forward(self, images: torch.Tensor, flat: List[torch.Tensor]) -> torch.Tensor:
+        return self.run(images.float(), flat)
+
+
+class _YuvProgram(_CascadeProgram):
+    def forward(self, y: torch.Tensor, uv: torch.Tensor, flat: List[torch.Tensor]) -> torch.Tensor:
+        return self.run(yuv420_to_rgb(y, uv), flat)
+
+
+def export_detector(
+    model: CascadeModel,
+    img_h: int,
+    img_w: int,
+    *,
+    batch: Optional[int] = None,
+    yuv: bool = False,
+    capacities: Optional[Sequence[int]] = None,
+    n_rungs: int = 3,
+    resample_impl: Optional[str] = None,
+    platforms: Optional[Sequence[str]] = None,
+    mesh=None,
+) -> ServingBundle:
+    """Export the batched cascade program for (img_h, img_w) frames on the
+    model's device.
+
+    Every config knob the program depends on is resolved here and recorded
+    in the bundle's metadata. ``n_rungs``: how many capacity rungs to ship
+    (rung 0 = base capacities; each next rung is one
+    ``escalate_capacities`` doubling). ``batch``: frames per program call
+    (default ``inference_batch_frames``). ``resample_impl``: "pallas2" (K2
+    for a crop-mode stage 0, K1 for re-extraction) or "pallas" (K1 for
+    both); default the configured choice. The row-bounded kernel K4
+    ("pallas2dyn") needs the host's overflow re-dispatch and is refused.
+
+    ``batch="dynamic"``, ``platforms`` other than the model's device type
+    and ``mesh`` are not ported yet and raise ``NotImplementedError``."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: frame-sharded bundles are not ported yet (ROADMAP Queue A item 11)"
+        )
+    if batch == "dynamic":
+        raise NotImplementedError(
+            'batch="dynamic": dynamic-batch bundles are not ported yet (ROADMAP Queue A item 9b)'
+        )
+    device = model.device
+    if platforms is not None and list(platforms) != [device.type]:
+        raise NotImplementedError(
+            "platforms={}: a bundle runs on its export device ({}) only; other "
+            "platforms are not ported yet (ROADMAP Queue A item 9b)".format(
+                list(platforms), device.type
+            )
+        )
+    if model.n_nets < 2:
+        raise ValueError("a cascade must consist of at least two nets")
+    impl = resample_impl or casc.resolve_resample_impl()
+    if impl == "pallas2dyn":
+        raise ValueError(
+            "the dynamic row-bounded kernel needs host-side overflow re-dispatch "
+            "policy; export with 'pallas' or 'pallas2'"
+        )
+    if impl not in ("pallas", "pallas2"):
+        raise ValueError("resample_impl={!r}: export with 'pallas' or 'pallas2'".format(impl))
+    size0 = model.input_sizes[0]
+    mwl = float(cf.get("min_window_length"))
+    wsf = float(cf.get("window_scale_factor"))
+    plan = build_plan(img_h, img_w, size0, size0, mwl, wsf)
+    if plan.n_windows < 1:
+        raise ValueError("Could not extract any windows at this image size")
+    table = window_table(plan)
+    n_stages = model.n_nets
+    base_caps = tuple(
+        capacities
+        or cf.get("cascade_capacity_schedule")
+        or casc.default_capacity_schedule(plan.n_windows, n_stages)
+    )
+    extraction_mode = casc.resolve_extraction_mode(plan)
+    high_precision = bool(cf.get("inference_high_precision"))
+    nms_mode = str(cf.get("nms"))
+    nms_on_device = casc.resolve_nms_on_device()
+    nms_min_neighbors = int(cf.get("nms_opencv_min_neighbors"))
+    knobs = {
+        "plan": plan,
+        "stage_configs": tuple(model.stage_configs),
+        "confidence_mode": str(cf.get("final_confidence_calculation")),
+        "thresholds": tuple(casc.resolve_thresholds(n_stages)),
+        "high_precision": high_precision,
+        "chunk": int(cf.get("inference_chunk_size")),
+        "compaction": casc.resolve_compaction(),
+        "extraction_mode": extraction_mode,
+        "resample_impl": impl,
+        "nms_mn": nms_min_neighbors if nms_on_device else -1,
+        "nms_eps": float(cf.get("nms_opencv_eps")),
+    }
+    batch = int(batch or cf.get("inference_batch_frames"))
+
+    rungs = [list(base_caps)]
+    while len(rungs) < max(1, n_rungs):
+        nxt = casc.escalate_capacities(rungs[-1], plan.n_windows)
+        if nxt is None:
+            break
+        rungs.append(nxt)
+
+    coords_norm = torch.as_tensor(table["coords_norm"].astype(np.int64), device=device)
+    tables = {
+        "coords_norm": coords_norm,
+        "boxes_float": torch.as_tensor(table["boxes_float"], device=device),
+        "stats": [
+            (torch.as_tensor(m, device=device), torch.as_tensor(s, device=device))
+            for m, s in zip(model.stage_means, model.stage_stds)
+        ],
+        "indices": level_indices(plan, device) if extraction_mode == "gather" else None,
+    }
+    sched = casc._stage0_schedule(plan, size0, impl, high_precision)
+    if extraction_mode == "crop" and sched is not None:
+        # build the schedule's device tables outside the trace, on the very
+        # device key the trace looks them up with, so they enter as constants
+        sched.device_tables(coords_norm.device)
+    flat = flatten_params(
+        [cnn.cast_params(p, c) for p, c in zip(model.stage_params, model.stage_configs)]
+    )
+    if yuv:
+        frames = (
+            torch.zeros(batch, img_h, img_w, dtype=torch.uint8, device=device),
+            torch.zeros(batch, img_h // 2, img_w // 2, 2, dtype=torch.uint8, device=device),
+        )
+    else:
+        frames = (torch.zeros(batch, img_h, img_w, 3, dtype=torch.uint8, device=device),)
+    program_cls = _YuvProgram if yuv else _RgbProgram
+    programs = []
+    for caps in rungs:
+        program = torch.export.export(program_cls(tables, knobs, caps), (*frames, flat))
+        # a saved program keeps its example inputs, the weights among them:
+        # drop them, so the weights are stored once, in weights.npz
+        program.example_inputs = None
+        programs.append(program)
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "program_format": PROGRAM_FORMAT,
+        "device": device.type,
+        "img_h": img_h,
+        "img_w": img_w,
+        "batch": batch,
+        "chunk_hint": batch,
+        "yuv": yuv,
+        "n_stages": n_stages,
+        "size0": size0,
+        "min_window_length": mwl,
+        "window_scale_factor": wsf,
+        "capacity_rungs": [list(map(int, caps)) for caps in rungs],
+        "thresholds": list(knobs["thresholds"]),
+        "confidence_mode": knobs["confidence_mode"],
+        "extraction_mode": extraction_mode,
+        "resample_impl": impl,
+        "chunk": knobs["chunk"],
+        "high_precision": high_precision,
+        "compaction": knobs["compaction"],
+        "nms_mode": nms_mode,
+        "nms_on_device": nms_on_device,
+        "nms_min_neighbors": nms_min_neighbors,
+        "nms_eps": knobs["nms_eps"],
+        "vertically_enlarge": bool(cf.get("vertically_enlarge_bboxes")),
+        "compute_dtype": str(model.stage_configs[0].compute_dtype).replace("torch.", ""),
+        "platforms": [device.type],
+        "weight_dtypes": [str(w.dtype).replace("torch.", "") for w in flat],
+        "nr_devices": 1,
+        "mesh_axis": None,
+    }
+    return ServingBundle(meta=meta, weights=[w.detach() for w in flat], programs=programs)
+
+
+def export_window_sharded(*args, **kwargs) -> ServingBundle:
+    """Window-sharded bundles (one huge image's windows over a mesh) wait
+    for the port of meshes."""
+    raise NotImplementedError(
+        "export_window_sharded: window-sharded bundles are not ported yet "
+        "(ROADMAP Queue A item 11)"
+    )
+
+
+def save_bundle(bundle: ServingBundle, dir_path: str) -> None:
+    """Write ``meta.json``, ``weights.npz`` and one ``program_<rung>.pt2``
+    per capacity rung (``torch.export.save``). bfloat16 weights are stored
+    as uint16 views (npz has no bfloat16) and re-viewed on load per the
+    meta's ``weight_dtypes``."""
+    os.makedirs(dir_path, exist_ok=True)
+    with open(os.path.join(dir_path, "meta.json"), "w") as f:
+        json.dump(bundle.meta, f, indent=1)
+    arrays = {}
+    for i, w in enumerate(bundle.weights):
+        w = w.detach().cpu()
+        if w.dtype == torch.bfloat16:
+            arrays["w{}".format(i)] = w.view(torch.int16).numpy().view(np.uint16)
+        else:
+            arrays["w{}".format(i)] = w.numpy()
+    np.savez(os.path.join(dir_path, "weights.npz"), **arrays)
+    for i, program in enumerate(bundle.programs):
+        torch.export.save(program, os.path.join(dir_path, "program_{}.pt2".format(i)))
+
+
+def load_bundle(dir_path: str, device=None) -> "ServingDetector":
+    """Load a saved bundle into a ready :class:`ServingDetector` on
+    ``device`` (default: the CUDA card). No model and no config: the
+    artifact is self-contained. A bundle that is not a ``torch.export``
+    bundle (e.g. one of the JAX package) raises ``ValueError``."""
+    with open(os.path.join(dir_path, "meta.json")) as f:
+        meta = json.load(f)
+    if meta.get("program_format") != PROGRAM_FORMAT:
+        raise ValueError(
+            "{} is not a {} bundle (program_format {!r}); the JAX package's "
+            "bundles load with its own serve.load_bundle".format(
+                dir_path, PROGRAM_FORMAT, meta.get("program_format")
+            )
+        )
+    if meta.get("format_version") != FORMAT_VERSION:
+        raise ValueError(
+            "unsupported bundle format {} (this build reads {})".format(
+                meta.get("format_version"), FORMAT_VERSION
+            )
+        )
+    device = resolve_device(device)
+    if device.type != meta["device"]:
+        raise NotImplementedError(
+            "this bundle was exported for {}; running it on {} is not ported yet "
+            "(ROADMAP Queue A item 9b)".format(meta["device"], device.type)
+        )
+    weights = []
+    with np.load(os.path.join(dir_path, "weights.npz")) as z:
+        for i, dt in enumerate(meta["weight_dtypes"]):
+            w = z["w{}".format(i)]
+            if dt == "bfloat16":
+                weights.append(torch.from_numpy(w.view(np.int16)).view(torch.bfloat16))
+            else:
+                weights.append(torch.from_numpy(w))
+    programs = [
+        torch.export.load(os.path.join(dir_path, "program_{}.pt2".format(i)))
+        for i in range(len(meta["capacity_rungs"]))
+    ]
+    return ServingDetector(ServingBundle(meta=meta, weights=weights, programs=programs), device)
+
+
+class ServingDetector:
+    """Serve detections from a bundle, with ``CascadeDetector.detect_batch``
+    semantics for fixed-size frames: frames are chunked to the exported
+    batch (a short chunk is padded with its last frame), a saturated frame
+    walks the capacity ladder (re-run as a padded batch), and a top-rung
+    saturation warns once and keeps the truncated result."""
+
+    def __init__(self, bundle: ServingBundle, device=None):
+        self.meta = m = bundle.meta
+        self.device = resolve_device(device)
+        self.programs = bundle.programs
+        self._modules = [p.module() for p in bundle.programs]
+        # on the device once; every rung's call reuses the same tensors
+        self._weights = [w.to(self.device) for w in bundle.weights]
+        set_numerics(getattr(torch, m["compute_dtype"]))
+        self._plan = build_plan(
+            m["img_h"], m["img_w"], m["size0"], m["size0"],
+            m["min_window_length"], m["window_scale_factor"],
+        )
+        self._table = window_table(self._plan)
+        self._warned = False
+
+    def _frame_shape_ok(self, frame) -> bool:
+        m = self.meta
+        if m["yuv"]:
+            if not isinstance(frame, (tuple, list)) or len(frame) != 2:
+                return False
+            y, uv = frame
+            return y.shape == (m["img_h"], m["img_w"]) and uv.shape == (
+                m["img_h"] // 2, m["img_w"] // 2, 2,
+            )
+        return frame.shape == (m["img_h"], m["img_w"], 3)
+
+    def _dispatch_rung(self, rung: int, frames: List) -> torch.Tensor:
+        """One exported program over exactly ``batch`` frames; returns the
+        packed rows on the device (not yet synchronised)."""
+        def upload(arrays):
+            return torch.as_tensor(np.stack(arrays), device=self.device)
+
+        if self.meta["yuv"]:
+            y, uv = upload([f[0] for f in frames]), upload([f[1] for f in frames])
+            return self._modules[rung](y, uv, self._weights)
+        return self._modules[rung](upload(frames), self._weights)
+
+    def _unpack(self, row: np.ndarray, rung: int) -> DetectionResult:
+        m = self.meta
+        return unpack_packed_row(
+            row,
+            m["capacity_rungs"][rung],
+            m["n_stages"],
+            self._plan,
+            self._table,
+            m["nms_on_device"],
+            nms_mode=m["nms_mode"],
+            nms_min_neighbors=m["nms_min_neighbors"],
+            vertically_enlarge=m["vertically_enlarge"],
+            nms_eps=m["nms_eps"],
+        )
+
+    def _saturated(self, result: DetectionResult, rung: int) -> bool:
+        return casc.CascadeDetector._is_saturated(
+            result.n_survivors_per_stage,
+            self.meta["capacity_rungs"][rung],
+            result.reextract_overflows,
+        )
+
+    def detect(self, frame) -> DetectionResult:
+        return self.detect_batch([frame])[0]
+
+    def detect_batch(self, frames: Sequence, pipeline_depth: int = 2) -> List[DetectionResult]:
+        """``pipeline_depth``: chunks kept in flight, so the next chunk's
+        upload and compute overlap the current read-back."""
+        m = self.meta
+        for f in frames:
+            if not self._frame_shape_ok(f):
+                raise ValueError(
+                    "frame shape does not match the exported program "
+                    "({}x{}, yuv={})".format(m["img_h"], m["img_w"], m["yuv"])
+                )
+        step = m["batch"]
+        results: List[Optional[DetectionResult]] = [None] * len(frames)
+        pending: List[Tuple[List[int], torch.Tensor]] = []
+
+        def finish(chunk_idx, packed_dev):
+            packed = packed_dev.cpu().numpy()
+            for j, i in enumerate(chunk_idx):
+                result, rung = self._unpack(packed[j], 0), 0
+                while self._saturated(result, rung) and rung + 1 < len(self._modules):
+                    rung += 1
+                    re_packed = self._dispatch_rung(rung, [frames[i]] * step).cpu().numpy()
+                    result = self._unpack(re_packed[0], rung)
+                if self._saturated(result, rung) and not self._warned:
+                    log.log(
+                        "WARNING: cascade stage saturated the bundle's top "
+                        "capacity rung; excess windows were dropped. Export "
+                        "with more rungs (n_rungs) or larger capacities."
+                    )
+                    self._warned = True
+                results[i] = result
+
+        for s in range(0, len(frames), step):
+            chunk_idx = list(range(s, min(s + step, len(frames))))
+            chunk = [frames[i] for i in chunk_idx]
+            chunk += [chunk[-1]] * (step - len(chunk))
+            pending.append((chunk_idx, self._dispatch_rung(0, chunk)))
+            if len(pending) > max(1, pipeline_depth):
+                finish(*pending.pop(0))
+        while pending:
+            finish(*pending.pop(0))
+        return results  # type: ignore[return-value]

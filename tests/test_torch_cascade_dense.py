@@ -10,6 +10,8 @@ Tolerance: ``torch_parity.assert_results_close`` (survivor ids up to 2%
 borderline flips, confidences within 2e-3, NMS boxes within 2 px).
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -68,10 +70,11 @@ def _record_resample_impls(monkeypatch):
     """Spy on ``cascade_core``: the resample choice of every dispatch."""
     seen = []
     core = tcascade.cascade_core
+    signature = inspect.signature(core)
 
-    def spy(*args):
-        seen.append(args[-1])
-        return core(*args)
+    def spy(*args, **kwargs):
+        seen.append(signature.bind(*args, **kwargs).arguments["resample_impl"])
+        return core(*args, **kwargs)
 
     monkeypatch.setattr(tcascade, "cascade_core", spy)
     return seen

@@ -16,6 +16,8 @@ from rapidobjectdetectionusingcascadedcnns_torch import config as cf
 from rapidobjectdetectionusingcascadedcnns_torch.data import synthetic
 from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
 from rapidobjectdetectionusingcascadedcnns_torch.ops import (
+    nms,
+    nms_cuda,
     pyramid,
     windows,
     windows_cuda,
@@ -173,3 +175,42 @@ def test_detector_on_card_matches_cpu(card, mode, dyn):
     assert res_gpu.n_windows == res_cpu.n_windows
     ids_g, ids_c = set(res_gpu.raw_window_ids.tolist()), set(res_cpu.raw_window_ids.tolist())
     assert len(ids_g ^ ids_c) <= 0.02 * max(len(ids_c), 1)
+
+
+@pytest.mark.parametrize("eps", [0.2, 0.3])
+def test_k3_matches_plain(card, eps):
+    """K3 against its plain version on the card: three frames of clustered
+    integer boxes with different valid counts and an all-invalid frame;
+    avg, counts, keep and labels all equal."""
+    rng = np.random.RandomState(int(eps * 10))
+    b, n = 4, 300
+    centers = rng.randint(0, 400, (b, 12, 2))
+    pick = rng.randint(0, 12, (b, n))
+    xy = np.take_along_axis(centers, pick[..., None].repeat(2, -1), 1) + rng.randint(-4, 5, (b, n, 2))
+    wh = 40 + pick[..., None] * 6 + rng.randint(-3, 4, (b, n, 2))
+    rects = torch.from_numpy(np.concatenate([xy, wh], -1).astype(np.float32))
+    valid = torch.from_numpy(rng.rand(b, n) < np.array([0.9, 0.5, 0.05, 0.0])[:, None])
+    before = nms_cuda.LAUNCHES
+    got = nms_cuda.group_rectangles_cuda(rects.to(card), valid.to(card), 1, eps)
+    assert nms_cuda.LAUNCHES == before + 1
+    ref = nms.group_rectangles_device_plain(rects, valid, 1, eps)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype
+        torch.testing.assert_close(g.cpu(), r, rtol=0, atol=0)
+    assert bool(ref[2].any()) and bool((ref[1] > 1).any())
+
+
+def test_k3_long_chain_converges(card):
+    """A chain of 600 boxes in shuffled row order needs far more than the
+    JAX tail's 11 propagation steps: K3 runs on to one component, as its
+    plain version and the host union-find do."""
+    order = np.random.RandomState(3).permutation(600)
+    rects = np.zeros((1, 600, 4), np.float32)
+    rects[0, order] = [(10 + 5 * k, 50, 40, 40) for k in range(600)]
+    valid = torch.ones(1, 600, dtype=torch.bool)
+    got = nms_cuda.group_rectangles_cuda(torch.from_numpy(rects).to(card), valid.to(card), 1, 0.2)
+    assert nms_cuda.LAST_STEPS > nms.propagation_steps(600)
+    ref = nms.group_rectangles_device_plain(torch.from_numpy(rects), valid, 1, 0.2)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.cpu(), r, rtol=0, atol=0)
+    assert (ref[3] == 0).all() and int(ref[2].sum()) == 1

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+from rapidobjectdetectionusingcascadedcnns_torch import serve as tserve
 from rapidobjectdetectionusingcascadedcnns_torch.models import bridge
 from rapidobjectdetectionusingcascadedcnns_torch.models import cascade as tcascade
 from rapidobjectdetectionusingcascadedcnns_torch.models import single as tsingle
@@ -35,7 +36,9 @@ PORT_MODULES = [
     "rapidobjectdetectionusingcascadedcnns_torch.native",
     "rapidobjectdetectionusingcascadedcnns_torch.ops._build",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.color",
+    "rapidobjectdetectionusingcascadedcnns_torch.ops.library",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.nms",
+    "rapidobjectdetectionusingcascadedcnns_torch.ops.nms_cuda",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.pyramid",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.rectangles",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.windows",
@@ -57,8 +60,9 @@ def _env():
 
 
 def test_port_never_imports_jax():
-    """Import every module of the port and run a tiny gather-mode detect and
-    a crop-mode detect (K2's and K4's plain versions), in a fresh
+    """Import every module of the port and run a tiny gather-mode detect, a
+    crop-mode detect (K2's and K4's plain versions), a detect with the
+    device NMS tail (K3's plain version) and a bundle round trip, in a fresh
     interpreter: neither jax nor any module of the JAX package may be
     loaded."""
     code = (
@@ -78,6 +82,17 @@ def test_port_never_imports_jax():
         "img = synthetic.make_scene(256, 256, 1, seed=0, min_face=40, max_face=80).image\n"
         "res = cascade.CascadeDetector(model).detect(img)\n"
         "assert res.n_windows > 0 and res.reextract_overflows is not None\n"
+        "import tempfile\n"
+        "from rapidobjectdetectionusingcascadedcnns_torch import serve\n"
+        "cf.set('window_extraction_mode', 'auto'); cf.set('dyn_reextract', 'auto')\n"
+        "cf.set('nms_on_device', True)\n"
+        "img = synthetic.make_scene(40, 48, 1, seed=0, min_face=16, max_face=24).image\n"
+        "live = cascade.CascadeDetector(model, capacity_schedule=[512, 512]).detect(img)\n"
+        "d = tempfile.mkdtemp()\n"
+        "serve.save_bundle(serve.export_detector(model, 40, 48, batch=1, capacities=[512, 512],\n"
+        "                                        n_rungs=1), d)\n"
+        "got = serve.load_bundle(d, device='cpu').detect(img)\n"
+        "assert (got.boxes == live.boxes).all() and len(got.boxes) == len(live.boxes)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'rapidobjectdetectionusingcascadedcnns_tpu'))\n"
         "assert not bad, bad\n"
@@ -144,18 +159,19 @@ def _tiny_model():
 
 
 @pytest.mark.parametrize(
-    "settings, what",
+    "entry, what",
     [
-        ({"nms_on_device": True, "nms": cf.NMS_OPENCV}, "nms_on_device"),
+        (lambda m: tcascade.CascadeDetector(m, mesh=object()), "item 11"),
+        (lambda m: tserve.export_detector(m, 40, 48, mesh=object()), "item 11"),
+        (lambda m: tserve.export_window_sharded(m, 40, 48, object()), "item 11"),
     ],
+    ids=["detector mesh", "bundle mesh", "window-sharded bundle"],
 )
-def test_unported_paths_raise(settings, what):
-    det = tcascade.CascadeDetector(_tiny_model())
-    for key, value in settings.items():
-        cf.set(key, value)
-    img = np.zeros((40, 48, 3), np.uint8)
+def test_unported_paths_raise(entry, what):
+    """Meshes are not ported (ROADMAP Queue A item 11): the entry points
+    that take one raise, naming the item, rather than running unsharded."""
     with pytest.raises(NotImplementedError, match=what):
-        det.detect(img)
+        entry(_tiny_model())
 
 
 @pytest.mark.parametrize("choice", ["xla", False, "einsum"])

@@ -8,7 +8,10 @@ seed 0, bf16 compute), as chip_smoke.py does, in two settings:
   * default capacities [640, 256]: what a user gets; frames that saturate
     are re-dispatched one by one with doubled capacities;
   * open capacities [5061, 4096]: the same survivors in ONE batched pass,
-    i.e. the cost of the batched program itself.
+    i.e. the cost of the batched program itself;
+  * with ``--nms-on-device`` also default capacities with the device NMS
+    tail (groupRectangles as kernel K3 at the end of every program, no
+    host NMS).
 
 ``--dense``: the dense path instead, ``CascadeDetector.detect_batch`` on 4
 synthetic 450x450 RGB frames at window scale factor 1.005 (131,903
@@ -91,7 +94,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--dense", action="store_true",
                         help="profile the 450x450 scale-factor-1.005 crop-mode path")
+    parser.add_argument("--nms-on-device", action="store_true",
+                        help="VGA path: add default capacities with the device NMS tail (K3)")
     args = parser.parse_args(argv)
+    if args.dense and args.nms_on_device:
+        parser.error("--nms-on-device profiles the VGA path only")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -103,6 +110,7 @@ def main(argv=None) -> int:
     from rapidobjectdetectionusingcascadedcnns_torch.data import synthetic
     from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
     from rapidobjectdetectionusingcascadedcnns_torch.ops import (
+        nms_cuda,
         windows_cuda,
         windows_dyn_cuda,
         windows_sched_cuda,
@@ -110,7 +118,8 @@ def main(argv=None) -> int:
 
     from rapidobjectdetectionusingcascadedcnns_torch import serve
 
-    kernels = (("K1", windows_cuda), ("K2", windows_sched_cuda), ("K4", windows_dyn_cuda))
+    kernels = (("K1", windows_cuda), ("K2", windows_sched_cuda), ("K4", windows_dyn_cuda),
+               ("K3", nms_cuda))
     # host NMS time: every decoded packed row goes through postprocess_raw
     nms = {"s": 0.0, "calls": 0}
     postprocess = serve.postprocess_raw
@@ -130,6 +139,9 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     case = _dense_case if args.dense else _vga_case
     frames, settings, method, reps, out_name = case(cf, synthetic, cascade)
+    if args.nms_on_device:  # last, so the settings before it keep host NMS
+        settings.append(("default caps, nms_on_device",
+                         {"cascade_capacity_schedule": None, "nms_on_device": True}))
     model = cascade.build_cascade_model(seed=0, device="cuda")
     os.makedirs(OUT_DIR, exist_ok=True)
     print("card:", card)
