@@ -54,9 +54,30 @@ Phases (each checked; any failure exits non-zero):
      weights leave more than 4096 stage-1 survivors in two frames, which
      the one-rung bundle truncates, so the live detector runs with
      re-dispatch off and truncates them the same way.
+  14. K2p (csrc/sched_precomp.cu), the path of
+     tools/profile_torch_sched_precomp.py: its ``profile`` at FDDB density
+     (4 frames of 450x450 at scale factor 1.005; builds the tap matrices,
+     K2p against K2 on the same frames, times both) with the launch counts
+     reset just before and read just after; then K2p against its plain
+     version and against K2, bit-equal, with times and K2p's bound;
+  15. full-width training: ``CascadeTrainer`` on the card with the
+     reference default architecture (3 nets of 12/24/48 px, conv [32], fc1
+     512, bf16, batch 1200, momentum SGD, dropout 0.5, online augmentation,
+     AdaBoost-like re-weighting, bottleneck reuse) on a synthetic patch
+     corpus of 12,000 samples (4,000 faces), so every stage takes 56 steps; only
+     ``epochs_total`` is cut (50 -> 7). Per stage: steps, first and last
+     loss, s/step, validation metrics, re-weighting error;
+  16. the trained cascade detecting: saved with the port's checkpoint,
+     reloaded through ``bridge.load_cascade`` on the card, the 16 VGA
+     YUV420 frames through ``detect_batch_yuv420`` with the in-memory and
+     the reloaded model, results equal; survivors per stage, re-dispatches,
+     K1 launches (counted around the in-memory run) and the batch wall;
+  17. card vs CPU for training: a tiny f32 cascade (conv [8], fc1 32, TF32
+     off, dropout 1, augmentation off) trained 2 epochs on both; losses
+     within 1e-4 relative, parameters within 1e-4 + 1e-3 relative.
 
 Kernels against plain versions: at most 1e-4 of the values may differ, each
-by at most 1 (bit-exact is expected); K3's outputs must be equal. The last line of stdout is
+by at most 1 (bit-exact is expected); K3's and K2p's outputs must be equal. The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel with
 its launches on its path, error, times and bound (K1 once for each path,
 at that path's shapes); the line before that is
@@ -164,7 +185,9 @@ K3_BYTES_PER_ROW = 46
 
 
 def _reset_launches():
-    for m in _kernel_modules():
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import windows_sched_precomp_cuda
+
+    for m in _kernel_modules() + (windows_sched_precomp_cuda,):
         m.LAUNCHES = 0
 
 
@@ -748,20 +771,282 @@ def phase_bundle(torch, model, frames, kind, card):
                                                    [round(x, 4) for x in walls], kind, card))
 
 
+def _load_tool(name):
+    """A script of ``tools/`` as a module (the directory is no package)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_k2p(torch, device):
+    """14. K2p on its path (the profiling tool at FDDB density), then
+    against its plain version and against K2. Returns K2p's launches on the
+    path and its kernel-line numbers."""
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import (
+        windows,
+        windows_sched,
+        windows_sched_cuda,
+        windows_sched_precomp_cuda as k2p_mod,
+    )
+
+    tool = _load_tool("profile_torch_sched_precomp")
+    _reset_launches()
+    result = tool.profile("fddb", DENSE_FRAMES, device)
+    launches = k2p_mod.LAUNCHES
+    assert launches >= 1, "K2p was launched {} times on its path".format(launches)
+    assert result["mismatches"] == 0, result["mismatches"]
+    ctx = result["ctx"]
+    sched, taps = ctx["sched"], ctx["taps"]
+    assert ctx["plan"].n_windows == DENSE_WINDOWS
+    _, tiles, _ = sched.device_tables(device)
+    planes = windows.to_planes_bf16(ctx["frames"])
+    sy, sx, _ = windows_sched.scheduled_positions(ctx["boxes"], sched, device)
+
+    def kernel():
+        return k2p_mod.resample_sched_precomp_cuda(planes, taps, tiles, sched)
+
+    def plain():
+        return windows_sched.resample_sched_precomp_plain(planes, taps, tiles, sched)
+
+    got = kernel()
+    ref = plain()
+    k2 = windows_sched_cuda.resample_sched_cuda(planes, sy, sx, tiles, sched.tile)
+    torch.cuda.synchronize()
+    n_bad = int((got != ref).sum())
+    n_bad_k2 = int((got != k2).sum())
+    err = float((got.float() - ref.float()).abs().max())
+    assert got.shape == ref.shape == k2.shape, (got.shape, ref.shape, k2.shape)
+    assert n_bad == 0 and n_bad_k2 == 0, ("K2p", n_bad, n_bad_k2)
+    n_values = got.numel()
+    del ref, k2
+    ms = _median_ms(kernel, torch)
+    k2_ms = _median_ms(
+        lambda: windows_sched_cuda.resample_sched_cuda(planes, sy, sx, tiles, sched.tile), torch
+    )
+    pms = _median_ms(plain, torch, warmup=1, iters=3)
+    tap_values = sum(m.numel() for pair in taps for m in pair)
+    n_bytes = (ctx["tap_bytes"] + planes.numel() * planes.element_size()
+               + tiles.numel() * tiles.element_size() + n_values * got.element_size())
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    # per output value K1's arithmetic; per tap value one comparison
+    ops_ms = (n_values * OPS_PER_VALUE + tap_values) / F32_OPS_PER_S * 1e3
+    bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    print("K2p {} frames {}x{} wsf {}: tap matrices {:.1f} MB built in {:.3f} s; {} launches "
+          "on the tool's path; vs plain {} and vs K2 {} of {} values differ; kernel {:.4f} ms, "
+          "K2 {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms ({}; bytes {:.1f} MB)".format(
+              DENSE_FRAMES, DENSE_HW[0], DENSE_HW[1], DENSE_WSF, ctx["tap_bytes"] / 1e6,
+              ctx["build_s"], launches, n_bad, n_bad_k2, n_values, ms, k2_ms, pms, bound_ms,
+              bound_by, n_bytes / 1e6))
+    del got
+    return launches, {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+
+
+# a third positives, as in a face corpus with more backgrounds than faces
+# (with more positives than negatives the trainer drops the F-beta loss);
+# 9,600 training samples are 8 steps of 1200 per epoch
+TRAIN_POS, TRAIN_NEG = 4000, 8000
+TRAIN_EPOCHS = 7  # cut from the default 50: 56 steps per stage
+
+
+def phase_training(torch, device, kind, card):
+    """15. The boosted cascade trained on the card at full width. Returns
+    the trained model."""
+    import math
+
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.train import cascade_trainer as ct
+    from rapidobjectdetectionusingcascadedcnns_torch.train import train_step
+    from rapidobjectdetectionusingcascadedcnns_torch.train.trainer import (
+        ConstantPredictionException,
+    )
+    from rapidobjectdetectionusingcascadedcnns_torch.utils import log
+
+    for key, want in (("cascade_n_nets", 3), ("img_width", 48), ("conv_filter_sizes", [32]),
+                      ("fc1_size", 512), ("compute_dtype", "bfloat16"), ("batch_size", 1200),
+                      ("optimizer", cf.OPTIMIZER_MOMENTUM), ("dropout_rate", 0.5),
+                      ("data_augmentation_online", True),
+                      ("cascade_resampling_method", cf.RESAMPLING_ADABOOST_LIKE),
+                      ("reuse_bottlenecks", True)):
+        assert cf.get(key) == want, (key, cf.get(key), want)
+    default_epochs = cf.get("epochs_total")
+    cf.set("epochs_total", TRAIN_EPOCHS)
+    print("training: epochs_total cut from {} to {}; everything else at its default".format(
+        default_epochs, TRAIN_EPOCHS))
+    t0 = time.perf_counter()
+    provider = ct.SyntheticProvider(TRAIN_POS, TRAIN_NEG, [12, 24, 48], seed=0)
+    data_s = time.perf_counter() - t0
+    trainer = ct.CascadeTrainer(provider, seed=0, device=device)
+    log.set_echo(False)
+    try:
+        t0 = time.perf_counter()
+        model = trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    except ConstantPredictionException as exc:
+        raise AssertionError("training raised ConstantPredictionException: {}".format(exc))
+    finally:
+        log.set_echo(True)
+    print("training: corpus of {} samples made in {:.2f} s; 3 stages trained in {:.2f} s "
+          "(evaluations and snapshots included) on {} [{}]".format(
+              TRAIN_POS + TRAIN_NEG, data_s, train_s, kind, card))
+    for i, st in enumerate(trainer.stage_trainers):
+        losses = st.losses()
+        assert len(losses) >= 50, (i, len(losses))
+        assert all(math.isfinite(x) for x in losses), ("NaN loss", i)
+        # s/step: ten more updates of this stage's trainer on one batch,
+        # synchronized (the cascade already holds copies of the weights).
+        # The split's bottlenecks now hold the next stage's input, so the
+        # timed batch gets zeros of this stage's bottleneck width.
+        batch = st.ds.train.new_default_iterator(cf.get("batch_size"), seed=0).next_batch
+        images = torch.as_tensor(batch.images, device=device)
+        labels = torch.as_tensor(batch.labels, device=device).long()
+        width = st.stage_config.bottleneck_in_size
+        bneck = None if width is None else torch.zeros((len(labels), width), device=device)
+
+        def step():
+            return train_step.train_step(
+                st.state, st.stage_config, st._loss_settings, st._augment, images, labels,
+                bneck, st._mean, st._std, st._host_gen, st._device_gen)
+
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step()
+        torch.cuda.synchronize()
+        s_step = (time.perf_counter() - t0) / 10
+        val = st.best_val_results or {}
+        err = trainer.reweight_errors[i] if i < len(trainer.reweight_errors) else None
+        print("training stage {} ({} px, f_beta {}): {} steps, loss first {:.6f} last {:.6f} "
+              "(min {:.6f}), {:.6f} s/step, validation accuracy {:.4f} recall {:.4f} precision "
+              "{:.4f} {} {:.4f}, re-weighting error {}".format(
+                  i, st.stage_config.input_size, st.f_beta, len(losses), losses[0], losses[-1],
+                  float(losses.min()), s_step, val.get("accuracy", float("nan")),
+                  val.get("recall", float("nan")), val.get("precision", float("nan")),
+                  st.main_criteria, val.get(st.main_criteria, float("nan")), err))
+        assert losses[-1] < losses[0], ("loss did not fall", i, losses[0], losses[-1])
+    print("training: combined cascade on the test split {}".format(
+        {k: round(v, 4) for k, v in trainer.combined_results["test"].items()}))
+    cf.set("epochs_total", default_epochs)
+    return model
+
+
+def phase_trained_detection(torch, device, model, frames, kind, card):
+    """16. The trained cascade detecting the VGA batch, in memory and
+    reloaded from its checkpoint. Returns K1's launches."""
+    from rapidobjectdetectionusingcascadedcnns_torch.models import bridge, cascade
+    from rapidobjectdetectionusingcascadedcnns_torch.train import checkpoint
+
+    windows_cuda = _kernel_modules()[0]
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save_cascade(d, "smoke", model)
+        reloaded = bridge.load_cascade(d, "smoke", device=device)
+    live = cascade.CascadeDetector(model)
+    _quietly(live.detect_batch_yuv420, frames)  # warm-up
+    live.redispatches = 0
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = _quietly(live.detect_batch_yuv420, frames)
+    wall = time.perf_counter() - t0
+    k1, redispatches = windows_cuda.LAUNCHES, live.redispatches
+    assert k1 >= 2, k1
+    again = _quietly(cascade.CascadeDetector(reloaded).detect_batch_yuv420, frames)
+    for a, b in zip(results, again):
+        assert a.raw_window_ids.tolist() == b.raw_window_ids.tolist()
+        assert a.raw_confidences.tolist() == b.raw_confidences.tolist()
+        assert _sorted_rows(a.boxes) == _sorted_rows(b.boxes)
+        assert a.n_survivors_per_stage == b.n_survivors_per_stage
+    for r in results:
+        s = r.n_survivors_per_stage
+        assert r.n_windows == VGA_WINDOWS and len(s) == 3 and s[0] >= s[1] >= s[2] >= 0, s
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _quietly(live.detect_batch_yuv420, frames)
+        walls.append(time.perf_counter() - t0)
+    print("trained cascade: survivors per stage per frame {}".format(
+        [r.n_survivors_per_stage for r in results]))
+    print("trained cascade: detections per frame {}; re-dispatches {}, K1 launches {}; in-memory "
+          "and reloaded results equal on all {} frames; 16-frame batch {:.4f} s (counted) then "
+          "{} s on {} [{}]".format([len(r.boxes) for r in results], redispatches, k1,
+                                   len(results), wall, [round(x, 4) for x in walls], kind, card))
+    return k1
+
+
+def phase_train_card_vs_cpu(torch, device):
+    """17. A tiny f32 cascade trained on the card and on the CPU."""
+    import numpy as np
+
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.train import cascade_trainer as ct
+    from rapidobjectdetectionusingcascadedcnns_torch.utils import log
+
+    saved = cf.snapshot()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    for key, value in (("conv_filter_sizes", [8]), ("fc1_size", 32), ("batch_size", 64),
+                       ("max_batch_size", 256), ("epochs_total", 2),
+                       ("compute_dtype", "float32"), ("data_augmentation_online", False),
+                       ("dropout_rate", 1.0)):
+        cf.set(key, value)
+    provider = ct.SyntheticProvider(150, 150, [12, 24, 48], seed=1)
+    log.set_echo(False)
+    try:
+        runs = {}
+        for dev in ("cpu", device):
+            trainer = ct.CascadeTrainer(provider, seed=0, device=dev)
+            model = trainer.train()
+            runs[str(dev)] = (trainer, model)
+    finally:
+        log.set_echo(True)
+        cf.restore(saved)
+    (t_cpu, m_cpu), (t_gpu, m_gpu) = runs["cpu"], runs[str(device)]
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    loss_err, param_err = 0.0, 0.0
+    for a, b in zip(t_cpu.stage_trainers, t_gpu.stage_trainers):
+        la, lb = a.losses(), b.losses()
+        assert la.shape == lb.shape, (la.shape, lb.shape)
+        np.testing.assert_allclose(lb, la, rtol=1e-4)
+        loss_err = max(loss_err, float(np.max(np.abs(lb - la) / np.abs(la))))
+    for pa, pb in zip(m_cpu.stage_params, m_gpu.stage_params):
+        for name in ("fc1", "fc2"):
+            for k in ("W", "b"):
+                x, y = pa[name][k].numpy(), pb[name][k].cpu().numpy()
+                np.testing.assert_allclose(y, x, rtol=1e-3, atol=1e-4)
+                param_err = max(param_err, float(np.max(np.abs(y - x))))
+        for la, lb in zip(pa["conv"], pb["conv"]):
+            for k in ("W", "b"):
+                x, y = la[k].numpy(), lb[k].cpu().numpy()
+                np.testing.assert_allclose(y, x, rtol=1e-3, atol=1e-4)
+                param_err = max(param_err, float(np.max(np.abs(y - x))))
+    print("training card vs cpu (f32, TF32 off, 3 stages x {} steps): max relative loss diff "
+          "{:.3g}, max |param diff| {:.3g}".format(
+              [len(t.losses()) for t in t_gpu.stage_trainers], loss_err, param_err))
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
 def _kernel_line(name, source, replaces, launches, m):
     return {
         "name": name,
         "route": "cuda",
         "source": "rapidobjectdetectionusingcascadedcnns_torch/csrc/" + source,
-        "replaces": "rapidobjectdetectionusingcascadedcnns_tpu/" + replaces,
+        "replaces": replaces if replaces.startswith("tools/") else (
+            "rapidobjectdetectionusingcascadedcnns_tpu/" + replaces),
         "launches": launches,
         "max_abs_err": m["max_abs_err"],
         "ms": m["ms"],
         "plain_ms": m["plain_ms"],
         "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"],
-        # no single PyTorch call keeps K1's, K2's and K4's two bf16 rounding
-        # points, and none computes K3's groupRectangles
+        # no single PyTorch call keeps K1's, K2's, K2p's and K4's two bf16
+        # rounding points, and none computes K3's groupRectangles
         "library_ms": None,
     }
 
@@ -833,6 +1118,20 @@ def main() -> int:
     k3_launches = phase_vga_tail(torch, detector, frames, host_results, kind, card)
     torch.cuda.empty_cache()
     phase_bundle(torch, model, frames, kind, card)
+    torch.cuda.empty_cache()
+
+    # ---- 14. K2p, the profiling tool's path ----------------------------------
+    k2p_launches, k2p = phase_k2p(torch, device)
+    torch.cuda.empty_cache()
+
+    # ---- 15-17. training -----------------------------------------------------
+    del model, detector
+    torch.cuda.empty_cache()
+    trained = phase_training(torch, device, kind, card)
+    k1_trained_launches = phase_trained_detection(torch, device, trained, frames, kind, card)
+    del trained
+    torch.cuda.empty_cache()
+    phase_train_card_vs_cpu(torch, device)
 
     loaded = sorted(
         m for m in sys.modules
@@ -851,6 +1150,10 @@ def main() -> int:
                      "ops/windows_dyn.py:83", k4_launches, k4),
         _kernel_line("K3 groupRectangles clustering (VGA device NMS tail, N=4096)",
                      "cluster.cu", "ops/nms_pallas.py:33", k3_launches, k3[OPEN_CAPS[-1]]),
+        _kernel_line("K2p scheduled extraction with precomputed taps (profiling tool)",
+                     "sched_precomp.cu", "tools/profile_sched_precomp.py:62", k2p_launches, k2p),
+        _kernel_line("K1 crop_and_resize (trained cascade, VGA path re-extraction)",
+                     "resample.cu", "ops/windows_pallas.py:63", k1_trained_launches, k1_vga),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

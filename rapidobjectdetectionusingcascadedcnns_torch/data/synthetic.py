@@ -1,15 +1,18 @@
 """Deterministic synthetic face-detection data.
 
-The port's copy of the scene generator of the JAX package's
-``data/synthetic.py`` (``make_scene`` and what it draws with; the training
-corpora are not ported yet). Same seeds, same pixels: skin-toned ellipses
-with darker eye/mouth blobs pasted on a low-frequency textured canvas, with
-ground-truth boxes, so detection runs hermetically and reproducibly.
+The port's copy of the JAX package's ``data/synthetic.py``: the scene
+generator (``make_scene``) and the patch corpora the trainers learn from
+(``make_patch_dataset``, ``make_multiresolution_patch_dataset``). Same
+seeds, same pixels: skin-toned ellipses with darker eye/mouth blobs pasted
+on a low-frequency textured canvas, with ground-truth boxes, so training
+and detection run hermetically and reproducibly. The scene-sampled corpus
+(``source="scenes"``) is not ported yet (ROADMAP Queue A item 10b).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import List, Tuple
 
 import numpy as np
 
@@ -66,6 +69,65 @@ def draw_face(rng: np.random.RandomState, size: int) -> np.ndarray:
     img[mouth] = np.array([rng.uniform(90, 140), rng.uniform(30, 60), rng.uniform(30, 60)])
 
     return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def draw_background(rng: np.random.RandomState, size: int) -> np.ndarray:
+    """One synthetic non-face patch (size, size, 3) uint8."""
+    kind = rng.randint(0, 3)
+    img = _smooth_noise(rng, size, size, cells=rng.randint(2, 7))
+    if kind == 1:  # add a rectangle (non-face structure)
+        y0, x0 = rng.randint(0, size // 2, size=2)
+        y1 = y0 + rng.randint(size // 4, size // 2)
+        x1 = x0 + rng.randint(size // 4, size // 2)
+        img[y0:y1, x0:x1] = rng.uniform(0, 255, size=3)
+    elif kind == 2:  # add diagonal stripes
+        yy, xx = np.mgrid[0:size, 0:size]
+        stripes = ((yy + xx) // max(2, size // 6)) % 2 == 0
+        img[stripes] = img[stripes] * 0.5
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def make_patch_dataset(
+    n_pos: int, n_neg: int, size: int, seed: int = 0
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Binary patch corpus: returns (images uint8 (N, size, size, 3), labels
+    int32 (N,)). Ordering is positives-then-negatives; callers shuffle with
+    :func:`.dataset.deterministic_shuffle`."""
+    rng = np.random.RandomState(seed)
+    images = np.empty((n_pos + n_neg, size, size, 3), dtype=np.uint8)
+    for i in range(n_pos):
+        images[i] = draw_face(rng, size)
+    for i in range(n_neg):
+        images[n_pos + i] = draw_background(rng, size)
+    labels = np.concatenate(
+        [np.ones(n_pos, np.int32), np.zeros(n_neg, np.int32)]
+    )
+    return images, labels
+
+
+def make_multiresolution_patch_dataset(
+    n_pos: int, n_neg: int, sizes: List[int], seed: int = 0
+) -> dict:
+    """The same samples rendered at several resolutions (cascade stages need
+    pixel-aligned datasets across resolutions, app/train_cascade_app.py:244-263).
+
+    Renders at max(sizes) once and area-downsamples, so sample i is the same
+    underlying scene at every resolution.
+    """
+    top = max(sizes)
+    images_top, labels = make_patch_dataset(n_pos, n_neg, top, seed)
+    out = {top: images_top}
+    for size in sizes:
+        if size == top:
+            continue
+        factor = top // size
+        if top % size != 0:
+            raise ValueError("sizes must divide the maximum size")
+        ds = images_top.reshape(
+            len(images_top), size, factor, size, factor, 3
+        ).mean(axis=(2, 4))
+        out[size] = np.clip(np.round(ds), 0, 255).astype(np.uint8)
+    return {"images": out, "labels": labels}
 
 
 @dataclass

@@ -79,8 +79,10 @@ def cascade_model_from_jax_arrays(
     return CascadeModel(
         [params_from_numpy(p, device) for p in stage_params],
         [stage_config_from_jax(c) for c in stage_configs],
-        [np.asarray(m, np.float32) for m in stage_means],
-        [np.asarray(s, np.float32) for s in stage_stds],
+        # copies: a jax array's numpy view is read-only, and the detector
+        # wraps these arrays as CPU tensors without copying
+        [np.array(m, np.float32) for m in stage_means],
+        [np.array(s, np.float32) for s in stage_stds],
     )
 
 

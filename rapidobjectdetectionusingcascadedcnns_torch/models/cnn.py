@@ -6,6 +6,7 @@ reference net, network/net.py:101-240):
     X -> [conv(kxk, SAME, stride s) -> relu -> maxpool(p, SAME, stride q)]*
       -> fc1 (relu)                                    # the "bottleneck"
       -> concat(prev-stage bottleneck)  (optional)
+      -> dropout (training only)
       -> fc2 (2 logits) -> softmax
 
 Parameters keep the JAX layout, ``{"conv": [{"W", "b"}], "fc1", "fc2"}``
@@ -168,12 +169,23 @@ def apply_stage(
     cfg: StageConfig,
     x: torch.Tensor,
     bottleneck_in: Optional[torch.Tensor] = None,
+    *,
+    dropout_keep: float = 1.0,
+    generator: Optional[torch.Generator] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Forward pass (inference: no dropout).
+    """Forward pass.
 
     ``x``: (N, H, W, C) float32, already standardized. Returns ``logits``
     (N, 2), ``probs`` (N, 2) and ``bottleneck`` (N, bottleneck_out_size),
     all float32.
+
+    Training passes the f32 master weights: the casts to the compute dtype
+    happen here, so gradients reach the masters through them (the
+    inference path pre-casts with :func:`cast_params` instead). With
+    ``dropout_keep`` < 1 the classifier input goes through inverted dropout
+    with keep-probability semantics (tf.nn.dropout, JAX ``cnn.py:252-280``),
+    its mask drawn from ``generator`` on the input's device; the bottleneck
+    returned is the tensor before dropout.
     """
     cdt = cfg.compute_dtype
     h = x.to(cdt).permute(0, 3, 1, 2)
@@ -192,8 +204,14 @@ def apply_stage(
         bottleneck = torch.cat([fc1, bottleneck_in.float()], dim=1)
     else:
         bottleneck = fc1
+    h2 = bottleneck
+    if dropout_keep < 1.0:
+        if generator is None:
+            raise ValueError("dropout requires a generator")
+        keep = torch.rand(h2.shape, generator=generator, device=h2.device) < dropout_keep
+        h2 = torch.where(keep, h2 / dropout_keep, torch.zeros_like(h2))
     logits = (
-        torch.matmul(bottleneck.to(cdt), params["fc2"]["W"].to(cdt)).float()
+        torch.matmul(h2.to(cdt), params["fc2"]["W"].to(cdt)).float()
         + params["fc2"]["b"].float()
     )
     probs = torch.softmax(logits, dim=-1)

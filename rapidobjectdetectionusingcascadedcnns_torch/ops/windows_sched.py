@@ -18,6 +18,16 @@ or columns outside the tile's cell contribute nothing, as in the TPU
 kernel; pixels past the image are zero. So on every real slot K2 equals K1
 bit for bit: cell-local coordinates differ from the global ones by an
 exact integer, and the schedule's cells hold each window's support.
+
+Precomputed taps (the profiling tool ``tools/profile_torch_sched_precomp.py``,
+counterpart of the JAX package's ``tools/profile_sched_precomp.py``):
+:func:`precompute_tap_matrices` builds every tile's two-tap triangle weight
+matrices once per plan, RY (tile * out_h, cell_r) and RX (cell_c, tile *
+out_w) in bf16, kept in device memory; :func:`extract_scheduled_precomp`
+resamples with them: kernel K2p (``ops/windows_sched_precomp_cuda.py``,
+``csrc/sched_precomp.cu``) for a CUDA tensor, the dense two-pass
+contraction :func:`resample_sched_precomp_plain` for a CPU tensor. Both
+equal K2 bit for bit.
 """
 
 from __future__ import annotations
@@ -370,6 +380,102 @@ def resample_sched_plain(
         planes, sy_local[None], sx_local[None],
         per_slot[..., 0], per_slot[..., 1], per_slot[..., 2], per_slot[..., 3],
     )
+
+
+def precompute_tap_matrices(
+    sched: ExtractionSchedule, boxes: torch.Tensor
+) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per cell class, the tap matrices of all its tiles on ``boxes``'
+    device: ``RY`` (n_tiles_cls * tile * out_h, cell_r) and ``RX`` (cell_c,
+    n_tiles_cls * tile * out_w), both ``bf16(max(0, 1 - |i - s|))`` of the
+    cell-local positions of :func:`scheduled_positions` (the expressions of
+    the JAX tool's ``precompute_weights``). ``boxes`` is the (N, 4) float32
+    window set the schedule was built from."""
+    device = boxes.device
+    sy_local, sx_local, _ = scheduled_positions(boxes, sched, device)
+    tile, out_h, out_w = sched.tile, sched.out_h, sched.out_w
+    sy_t = sy_local.reshape(sched.n_tiles, tile * out_h)
+    sx_t = sx_local.reshape(sched.n_tiles, tile * out_w)
+    out = []
+    for cls in sched.classes:
+        sel = torch.as_tensor(cls.sel, device=device)
+        sy_c = sy_t[sel].reshape(-1, 1)  # (tiles * tile * out_h, 1)
+        sx_c = sx_t[sel].reshape(1, -1)  # (1, tiles * tile * out_w)
+        r_iota = torch.arange(cls.cell_r, dtype=torch.float32, device=device)[None, :]
+        c_iota = torch.arange(cls.cell_c, dtype=torch.float32, device=device)[:, None]
+        ry = torch.clamp(1.0 - torch.abs(r_iota - sy_c), min=0.0).to(torch.bfloat16)
+        rx = torch.clamp(1.0 - torch.abs(c_iota - sx_c), min=0.0).to(torch.bfloat16)
+        out.append((ry, rx))
+    return out
+
+
+def tap_bytes(taps: List[Tuple[torch.Tensor, torch.Tensor]]) -> int:
+    return sum(t.numel() * t.element_size() for pair in taps for t in pair)
+
+
+def resample_sched_precomp_plain(
+    planes: torch.Tensor,
+    taps: List[Tuple[torch.Tensor, torch.Tensor]],
+    tiles: torch.Tensor,
+    sched: ExtractionSchedule,
+    chunk: int = 16,
+) -> torch.Tensor:
+    """Plain version of kernel K2p: ``planes`` (B, C, H, W) bf16, ``taps``
+    of :func:`precompute_tap_matrices`, ``tiles`` (n_tiles, 4) int32 ->
+    (B, n_slots, out_h, out_w, C) bf16 on the u8 lattice in scheduled
+    order. Per tile the dense two-pass contraction of the JAX tool's
+    kernel: the tile's image cell (zero past the image) contracted with RY
+    in f32, rounded to bf16, contracted with RX in f32, the diagonal
+    (window, window) blocks kept, rounded half to even and clipped.
+    ``chunk`` tiles at a time bound the memory."""
+    b, c, h, w = planes.shape
+    tile, out_h, out_w = sched.tile, sched.out_h, sched.out_w
+    padded = torch.zeros((b, c, sched.h_pad, sched.w_pad), dtype=torch.float32,
+                         device=planes.device)
+    padded[:, :, :h, :w] = planes.float()
+    tiles = tiles.long()
+    outs = []
+    for cls, (ry, rx) in zip(sched.classes, taps):
+        ry = ry.float().reshape(cls.n_tiles, tile * out_h, cls.cell_r)
+        rx = rx.float().reshape(cls.cell_c, cls.n_tiles, tile * out_w).permute(1, 0, 2)
+        r_iota = torch.arange(cls.cell_r, device=planes.device)
+        c_iota = torch.arange(cls.cell_c, device=planes.device)
+        for s in range(0, cls.n_tiles, chunk):
+            sel = torch.as_tensor(cls.sel[s : s + chunk], device=planes.device)
+            rows = tiles[sel, 0][:, None] + r_iota  # (nt, cell_r)
+            cols = tiles[sel, 1][:, None] + c_iota  # (nt, cell_c)
+            block = padded[:, :, rows[:, :, None], cols[:, None, :]]  # (B, C, nt, R, Cc)
+            v = torch.matmul(ry[s : s + chunk], block).to(torch.bfloat16).float()
+            p = torch.matmul(v, rx[s : s + chunk])  # (B, C, nt, tile*oh, tile*ow)
+            nt = p.shape[2]
+            p = p.reshape(b, c, nt, tile, out_h, tile, out_w)
+            p = torch.diagonal(p, dim1=3, dim2=5)  # (B, C, nt, oh, ow, tile)
+            p = p.permute(0, 2, 5, 3, 4, 1).reshape(b, nt * tile, out_h, out_w, c)
+            outs.append(torch.clamp(torch.round(p), 0.0, 255.0).to(torch.bfloat16))
+    return torch.cat(outs, dim=1)
+
+
+def extract_scheduled_precomp(
+    images: torch.Tensor,
+    taps: List[Tuple[torch.Tensor, torch.Tensor]],
+    sched: ExtractionSchedule,
+) -> torch.Tensor:
+    """Extract every scheduled window of (B, H, W, C) frames with
+    precomputed taps: (B, n_slots, out_h, out_w, C) bf16 in scheduled
+    order, equal to :func:`extract_scheduled`. Kernel K2p for CUDA frames,
+    its plain version for CPU frames."""
+    h, w = images.shape[1], images.shape[2]
+    if (h, w) != (sched.img_h, sched.img_w):
+        raise ValueError(
+            "schedule built for {}x{}, frames are {}x{}".format(sched.img_h, sched.img_w, h, w)
+        )
+    _, tiles, _ = sched.device_tables(images.device)
+    planes = windows.to_planes_bf16(images)
+    if images.is_cuda:
+        from . import windows_sched_precomp_cuda
+
+        return windows_sched_precomp_cuda.resample_sched_precomp_cuda(planes, taps, tiles, sched)
+    return resample_sched_precomp_plain(planes, taps, tiles, sched)
 
 
 def extract_scheduled(

@@ -214,3 +214,65 @@ def test_k3_long_chain_converges(card):
     for g, r in zip(got, ref):
         torch.testing.assert_close(g.cpu(), r, rtol=0, atol=0)
     assert (ref[3] == 0).all() and int(ref[2].sum()) == 1
+
+
+def test_k2p_matches_plain_and_k2(card):
+    """K2p on a 6-class schedule with 512-wide cells and a ragged edge:
+    equal to its plain version and to K2, bit for bit."""
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import windows_sched_precomp_cuda
+
+    img_h, img_w = 200, 300
+    plan = pyramid.build_plan(img_h, img_w, 12, 12, 0.075, 1.25)
+    boxes = torch.as_tensor(pyramid.window_table(plan)["boxes_float"], device=card).float()
+    sched = windows_sched.build_schedule(boxes.cpu().numpy(), img_h, img_w, 12, 12)
+    rng = np.random.RandomState(4)
+    images = torch.as_tensor(rng.randint(0, 256, (3, img_h, img_w, 3)).astype(np.float32),
+                             device=card)
+    taps = windows_sched.precompute_tap_matrices(sched, boxes)
+    _, tiles, _ = sched.device_tables(card)
+    planes = windows.to_planes_bf16(images)
+    before = windows_sched_precomp_cuda.LAUNCHES
+    got = windows_sched_precomp_cuda.resample_sched_precomp_cuda(planes, taps, tiles, sched)
+    assert windows_sched_precomp_cuda.LAUNCHES == before + len(sched.classes)
+    ref = windows_sched.resample_sched_precomp_plain(planes, taps, tiles, sched)
+    k2 = windows_sched.extract_scheduled(images, boxes, sched)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(got, k2)
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """A few f32 updates (TF32 off, dropout 1, no augmentation) of a small
+    stage with a bottleneck input, on the card and on the CPU from the same
+    parameters: losses within 1e-5 relative, parameters within 1e-5 + 1e-4
+    relative (cuDNN and cuBLAS sum in other orders)."""
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cnn
+    from rapidobjectdetectionusingcascadedcnns_torch.train import optimizer, train_step
+    from rapidobjectdetectionusingcascadedcnns_torch.utils.device import set_numerics
+
+    set_numerics(torch.float32)
+    cfg = cnn.StageConfig(input_size=24, conv_filter_sizes=(8,), fc1_size=32,
+                          bottleneck_in_size=16, compute_dtype=torch.float32)
+    rng = np.random.RandomState(1)
+    images = torch.as_tensor(rng.randint(0, 256, (64, 24, 24, 3)).astype(np.uint8))
+    labels = torch.as_tensor((rng.rand(64) < 0.4).astype(np.int64))
+    bneck = torch.as_tensor(rng.normal(0, 1, (64, 16)).astype(np.float32))
+    mean, std = images.float().mean(0), images.float().std(0) + 1.0
+    settings = train_step.LossSettings(f_beta=4.0, positive_proportion=0.4, weighted=True,
+                                       normalize=False, l2_strength=0.0, l1_strength=0.0,
+                                       dropout_keep=1.0)
+    sched = optimizer.exponential_decay_staircase(0.01, 0.5, 2.0, 0.001)
+    runs = {}
+    for dev in (torch.device("cpu"), card):
+        state = train_step.init_train_state(
+            cfg, 3, lambda leaves: optimizer.make_optimizer(leaves, sched, cf.OPTIMIZER_MOMENTUM,
+                                                            0.9), dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        args = [t.to(dev) for t in (images, labels, bneck, mean, std)]
+        losses = [float(train_step.train_step(state, cfg, settings, None, *args,
+                                              torch.Generator().manual_seed(0), gen))
+                  for _ in range(4)]
+        runs[dev.type] = (losses, [t.detach().cpu().numpy()
+                                   for t in train_step.param_leaves(state.params)])
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5)
+    for g, r in zip(runs["cuda"][1], runs["cpu"][1]):
+        np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-5)

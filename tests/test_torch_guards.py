@@ -16,6 +16,8 @@ from rapidobjectdetectionusingcascadedcnns_torch.models import bridge
 from rapidobjectdetectionusingcascadedcnns_torch.models import cascade as tcascade
 from rapidobjectdetectionusingcascadedcnns_torch.models import single as tsingle
 from rapidobjectdetectionusingcascadedcnns_torch.ops import _build
+from rapidobjectdetectionusingcascadedcnns_torch.train import cascade_trainer as tct
+from rapidobjectdetectionusingcascadedcnns_torch.train import trainer as ttrainer
 from rapidobjectdetectionusingcascadedcnns_torch.utils import device
 
 from torch_parity import reset_port_config  # noqa: F401 (autouse fixture)
@@ -27,14 +29,18 @@ PORT_MODULES = [
     "rapidobjectdetectionusingcascadedcnns_torch",
     "rapidobjectdetectionusingcascadedcnns_torch.config",
     "rapidobjectdetectionusingcascadedcnns_torch.data",
+    "rapidobjectdetectionusingcascadedcnns_torch.data.dataset",
     "rapidobjectdetectionusingcascadedcnns_torch.data.image_io",
+    "rapidobjectdetectionusingcascadedcnns_torch.data.preprocessor",
     "rapidobjectdetectionusingcascadedcnns_torch.data.synthetic",
+    "rapidobjectdetectionusingcascadedcnns_torch.labels",
     "rapidobjectdetectionusingcascadedcnns_torch.models.bridge",
     "rapidobjectdetectionusingcascadedcnns_torch.models.cascade",
     "rapidobjectdetectionusingcascadedcnns_torch.models.cnn",
     "rapidobjectdetectionusingcascadedcnns_torch.models.single",
     "rapidobjectdetectionusingcascadedcnns_torch.native",
     "rapidobjectdetectionusingcascadedcnns_torch.ops._build",
+    "rapidobjectdetectionusingcascadedcnns_torch.ops.augment",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.color",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.library",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.nms",
@@ -47,7 +53,16 @@ PORT_MODULES = [
     "rapidobjectdetectionusingcascadedcnns_torch.ops.windows_dyn_cuda",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.windows_sched",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.windows_sched_cuda",
+    "rapidobjectdetectionusingcascadedcnns_torch.ops.windows_sched_precomp_cuda",
     "rapidobjectdetectionusingcascadedcnns_torch.serve",
+    "rapidobjectdetectionusingcascadedcnns_torch.train",
+    "rapidobjectdetectionusingcascadedcnns_torch.train.cascade_trainer",
+    "rapidobjectdetectionusingcascadedcnns_torch.train.checkpoint",
+    "rapidobjectdetectionusingcascadedcnns_torch.train.losses",
+    "rapidobjectdetectionusingcascadedcnns_torch.train.metrics",
+    "rapidobjectdetectionusingcascadedcnns_torch.train.optimizer",
+    "rapidobjectdetectionusingcascadedcnns_torch.train.train_step",
+    "rapidobjectdetectionusingcascadedcnns_torch.train.trainer",
     "rapidobjectdetectionusingcascadedcnns_torch.utils.device",
     "rapidobjectdetectionusingcascadedcnns_torch.utils.log",
 ]
@@ -60,15 +75,21 @@ def _env():
 
 
 def test_port_never_imports_jax():
-    """Import every module of the port and run a tiny gather-mode detect, a
-    crop-mode detect (K2's and K4's plain versions), a detect with the
-    device NMS tail (K3's plain version) and a bundle round trip, in a fresh
+    """Import every module of the port and the port's profiling tool of
+    K2p, and run a tiny gather-mode detect, a crop-mode detect (K2's and
+    K4's plain versions), a detect with the device NMS tail (K3's plain
+    version), a bundle round trip, K2p's plain version and a 3-stage
+    ``CascadeTrainer`` run with online augmentation and dropout, in a fresh
     interpreter: neither jax nor any module of the JAX package may be
     loaded."""
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
+        "import torch\n"
+        "torch.set_num_threads(2)  # as the test modules: six workers share the host\n"
         "for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        "spec = importlib.util.spec_from_file_location('tool', {tool!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "from rapidobjectdetectionusingcascadedcnns_torch import config as cf\n"
         "from rapidobjectdetectionusingcascadedcnns_torch.data import synthetic\n"
         "from rapidobjectdetectionusingcascadedcnns_torch.models import cascade\n"
@@ -79,7 +100,7 @@ def test_port_never_imports_jax():
         "res = cascade.CascadeDetector(model).detect(img)\n"
         "assert res.n_windows > 0\n"
         "cf.set('window_extraction_mode', 'crop'); cf.set('dyn_reextract', 'on')\n"
-        "img = synthetic.make_scene(256, 256, 1, seed=0, min_face=40, max_face=80).image\n"
+        "img = synthetic.make_scene(128, 256, 1, seed=0, min_face=40, max_face=80).image\n"
         "res = cascade.CascadeDetector(model).detect(img)\n"
         "assert res.n_windows > 0 and res.reextract_overflows is not None\n"
         "import tempfile\n"
@@ -93,11 +114,23 @@ def test_port_never_imports_jax():
         "                                        n_rungs=1), d)\n"
         "got = serve.load_bundle(d, device='cpu').detect(img)\n"
         "assert (got.boxes == live.boxes).all() and len(got.boxes) == len(live.boxes)\n"
+        "from rapidobjectdetectionusingcascadedcnns_torch.ops import pyramid, windows_sched as ws\n"
+        "plan = pyramid.build_plan(128, 256, 12, 12, 0.075, 1.5)\n"
+        "sched = ws.schedule_for_plan(plan, 12, 12)\n"
+        "boxes = torch.as_tensor(pyramid.window_table(plan)['boxes_float'])\n"
+        "frames = torch.zeros((1, 128, 256, 3))\n"
+        "out = ws.extract_scheduled_precomp(frames, ws.precompute_tap_matrices(sched, boxes), sched)\n"
+        "assert torch.equal(out, ws.extract_scheduled(frames, boxes, sched))\n"
+        "from rapidobjectdetectionusingcascadedcnns_torch.train import cascade_trainer as ct\n"
+        "cf.set('nms_on_device', False); cf.set('batch_size', 16); cf.set('epochs_total', 1)\n"
+        "trained = ct.CascadeTrainer(ct.SyntheticProvider(12, 20, [12, 24, 48]),\n"
+        "                            device='cpu').train()\n"
+        "assert trained.n_nets == 3\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'rapidobjectdetectionusingcascadedcnns_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
-    ).format(mods=PORT_MODULES)
+    ).format(mods=PORT_MODULES, tool=os.path.join(REPO, "tools", "profile_torch_sched_precomp.py"))
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, env=_env(),
         capture_output=True, text=True, timeout=120,
@@ -129,6 +162,11 @@ def test_cuda_device_without_a_card_raises():
     mean, std = model.stage_means[0], model.stage_stds[0]
     with pytest.raises(RuntimeError):
         tsingle.SingleNetDetector(model.stage_params[0], cfg0, mean, std)
+    provider = tct.SyntheticProvider(6, 10, [12, 24, 48])
+    with pytest.raises(RuntimeError):
+        tct.CascadeTrainer(provider)
+    with pytest.raises(RuntimeError):
+        ttrainer.SingleNetTrainer(provider.dataset(12))
 
 
 def test_chip_smoke_refuses_a_host_without_cuda():
@@ -164,12 +202,24 @@ def _tiny_model():
         (lambda m: tcascade.CascadeDetector(m, mesh=object()), "item 11"),
         (lambda m: tserve.export_detector(m, 40, 48, mesh=object()), "item 11"),
         (lambda m: tserve.export_window_sharded(m, 40, 48, object()), "item 11"),
+        (lambda m: tct.CascadeTrainer(None, mesh=object(), device="cpu"), "item 11"),
+        (lambda m: ttrainer.SingleNetTrainer(None, mesh=object(), device="cpu"), "item 11"),
+        (lambda m: ttrainer.SingleNetTrainer(None, use_inception=True, device="cpu"),
+         "item 12"),
+        (lambda m: tct.SyntheticProvider(4, 4, [12], source="scenes"), "item 10b"),
+        (lambda m: tct.SyntheticProvider(4, 4, [12], source="mixed"), "item 10b"),
+        (lambda m: tct.SyntheticProvider(4, 4, [12], hard_negatives=np.zeros((1, 12, 12, 3))),
+         "item 10b"),
     ],
-    ids=["detector mesh", "bundle mesh", "window-sharded bundle"],
+    ids=["detector mesh", "bundle mesh", "window-sharded bundle", "cascade trainer mesh",
+         "trainer mesh", "trainer inception", "scene corpus", "mixed corpus",
+         "hard negatives"],
 )
 def test_unported_paths_raise(entry, what):
-    """Meshes are not ported (ROADMAP Queue A item 11): the entry points
-    that take one raise, naming the item, rather than running unsharded."""
+    """Meshes (ROADMAP Queue A item 11), the Inception backbone (item 12)
+    and the scene corpora and mined hard examples (item 10b) are not
+    ported: the entry points that take one raise, naming the item, rather
+    than running without it."""
     with pytest.raises(NotImplementedError, match=what):
         entry(_tiny_model())
 
