@@ -15,11 +15,13 @@ Phases (each checked; any failure exits non-zero):
      one nvcc per source, all started together;
   3. K1 (csrc/resample.cu) against its plain PyTorch version at the VGA
      path's shapes (16 VGA frames, 640 boxes at 24 px and 256 boxes at
-     48 px, real window boxes of the VGA pyramid), with median times;
+     48 px, real window boxes of the VGA pyramid), with median times and,
+     as a yardstick, one ``grid_sample`` call on the same positions;
   4. the VGA path: ``CascadeDetector.detect_batch_yuv420`` on 16 synthetic
      VGA YUV420 frames with the reference default architecture at full
      width (random weights from seed 0, bf16 compute); the launch counts
-     are reset just before and read just after one detect call;
+     are reset just before and read just after one detect call; the batch
+     walls (host NMS included) with ``native.available()``;
   5. card vs CPU on the VGA path: one frame, f32 compute with TF32 off,
      same weights; survivor window ids agree up to borderline flips;
   6. K1 against its plain version at the dense path's re-extraction
@@ -35,18 +37,25 @@ Phases (each checked; any failure exits non-zero):
      enough re-dispatch retries to reach the open capacities, then
      again with ``dyn_reextract="on"`` (K4), then ``SingleNetDetector``
      (the 12 px stage) on one frame; the launch counts are reset just
-     before and read just after each detect call;
+     before and read just after each detect call; the batch walls (host
+     NMS included) with ``native.available()``;
   10. card vs CPU in crop mode: one 256x320 frame at scale factor 1.02
      (25,534 windows, 119 levels), f32 with TF32 off, with the default
      kernels and again with ``dyn_reextract="on"``;
   11. K3 (csrc/cluster.cu) against its plain version on the 16 VGA frames'
      last-stage survivor boxes and alive masks: from an open-capacity
      [5061, 4096] run (N = 4096) and from a default-capacity run (N = 256),
-     at eps 0.2 and 0.3 with min_neighbors 1; every output equal;
+     at eps 0.2 and 0.3 with min_neighbors 1, and on the dense path's
+     last stage (4 frames of 450x450 at the default capacities, N = 4,224);
+     every output equal; kernel launches (profiler) and host
+     synchronisations (sync debug mode) in one call; the workspace at the
+     dense open rung (N = 131,903) against the adjacency bitmask K3 kept
+     before;
   12. the VGA path with the device NMS tail (``nms_on_device``): the 16
      frames at the default capacities with re-dispatch; raw survivors,
      final boxes and confidences equal to the host-NMS run of phase 4;
-     K3 launches, and the batch wall with the tail against host NMS;
+     K3 launches, and the batch wall with the tail against host NMS (with
+     ``native.available()``);
   13. the serving bundle: a VGA YUV bundle (batch 16, capacities [5061,
      4096], one rung, device tail) exported, saved, loaded; its graph holds
      the ``rodc`` kernel operators; served results equal the live
@@ -77,7 +86,11 @@ Phases (each checked; any failure exits non-zero):
      within 1e-4 relative, parameters within 1e-4 + 1e-3 relative.
 
 Kernels against plain versions: at most 1e-4 of the values may differ, each
-by at most 1 (bit-exact is expected); K3's and K2p's outputs must be equal. The last line of stdout is
+by at most 1 (bit-exact is expected); K3's and K2p's outputs must be equal.
+``library_ms`` of K1, K2, K2p and K4 is one ``torch.nn.functional.grid_sample``
+call (f32 bilinear, border padding) at the same sampling positions: a time
+yardstick without the two bf16 rounding points and the u8 quantisation,
+never called by the port; K3 has none. The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel with
 its launches on its path, error, times and bound (K1 once for each path,
 at that path's shapes); the line before that is
@@ -127,7 +140,11 @@ def _nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _median_ms(fn, torch, warmup: int = 3, iters: int = 20) -> float:
+def _median_ms(fn, torch, warmup: int = 3, iters: int = 20, reps: int = 10) -> float:
+    """Median over ``iters`` samples of the time per call, each sample
+    ``reps`` calls back to back between two CUDA events (so that the
+    host's launch overhead overlaps the card's work where the call does
+    not synchronise)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -135,10 +152,11 @@ def _median_ms(fn, torch, warmup: int = 3, iters: int = 20) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -150,6 +168,35 @@ def _bound(tensors_in, tensors_out, n_values):
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_values * OPS_PER_VALUE / F32_OPS_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def _grid_sample_ms(torch, planes, sy, sx):
+    """``library_ms``: the median time of one ``grid_sample`` call (f32
+    bilinear, border padding, half-pixel centres) of ``planes`` (B, C, H,
+    W) at the sampling positions ``sy`` (B, N, oh) and ``sx`` (B, N, ow),
+    in global pixel coordinates. The f32 planes and the grid are built
+    before the timed call. A yardstick only: no bf16 rounding points and
+    no u8 quantisation, and the port never calls it."""
+    import torch.nn.functional as F
+
+    b, _, h, w = planes.shape
+    n, oh, ow = sy.shape[1], sy.shape[2], sx.shape[2]
+    gy = ((2.0 * sy + 1.0) / h - 1.0)[..., :, None].expand(b, n, oh, ow)
+    gx = ((2.0 * sx + 1.0) / w - 1.0)[..., None, :].expand(b, n, oh, ow)
+    grid = torch.stack([gx, gy], dim=-1).reshape(b, n * oh, ow, 2)
+    pf = planes.float()
+    ms = _median_ms(lambda: F.grid_sample(pf, grid, mode="bilinear", padding_mode="border",
+                                          align_corners=False), torch)
+    del grid, pf
+    return ms
+
+
+def _native():
+    """Whether host NMS ran the native groupRectangles library (else its
+    numpy fallback), for the host-NMS walls."""
+    from rapidobjectdetectionusingcascadedcnns_torch import native
+
+    return native.available()
 
 
 def _compare(got, ref, what):
@@ -177,9 +224,9 @@ def _flips(res_a, res_b):
     return flips, allowed, ids_a, ids_b
 
 
-# K3's bound: about 16 f32 operations per (row, row) pair of a frame (the
-# SimilarRects test); bytes per row in and out: rects 16, valid 1, avg 16,
-# counts 4, keep 1, labels 8
+# K3's bound: about 16 f32 operations per pair (i < j) of rows of a frame
+# (the SimilarRects test is symmetric, so each pair is tested once); bytes
+# per row in and out: rects 16, valid 1, avg 16, counts 4, keep 1, labels 8
 K3_OPS_PER_PAIR = 16
 K3_BYTES_PER_ROW = 46
 
@@ -257,8 +304,9 @@ def phase_k1(torch, label, planes, coords, caps_by_size):
 
     n_frames, _, img_h, img_w = planes.shape
     gen = torch.Generator(device=planes.device).manual_seed(0)
-    out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     for size, n in caps_by_size.items():
+        per_block, smem = windows_cuda.launch_geometry(size, size, 3)
         ids = torch.randint(0, coords.shape[0], (n_frames, n), generator=gen,
                             device=planes.device)
         sy, sx = windows.sample_positions(coords[ids], img_h, img_w, size, size)
@@ -271,15 +319,18 @@ def phase_k1(torch, label, planes, coords, caps_by_size):
         del ref
         ms = _median_ms(lambda: windows_cuda.crop_and_resize_cuda(planes, sy, sx), torch)
         pms = _median_ms(lambda: windows.resample_plain(planes, sy, sx), torch,
-                         warmup=1, iters=5)
+                         warmup=1, iters=5, reps=1)
+        lib_ms = _grid_sample_ms(torch, planes, sy, sx)
         bound_ms, bound_by = _bound((planes, sy, sx), (got,), got.numel())
         print("K1 ({}) {}px x {} boxes x {} frames {}x{}: {} of {} values differ (max {}), "
-              "kernel {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms ({})".format(
-                  label, size, n, n_frames, img_h, img_w, n_bad, total, err, ms, pms,
-                  bound_ms, bound_by))
+              "kernel {:.4f} ms, plain {:.4f} ms, grid_sample {:.4f} ms, bound {:.4f} ms ({}; "
+              "{:.1%} of it); {} boxes per block, {} B of shared memory".format(
+                  label, size, n, n_frames, img_h, img_w, n_bad, total, err, ms, pms, lib_ms,
+                  bound_ms, bound_by, bound_ms / ms, per_block, smem))
         out["max_abs_err"] = max(out["max_abs_err"], err)
         out["ms"] += ms
         out["plain_ms"] += pms
+        out["library_ms"] += lib_ms
         out["bound_ms"] += bound_ms
         out["bound_by"] = bound_by
     return out
@@ -319,8 +370,9 @@ def phase_vga_path(torch, detector, frames, kind, card):
         batch_s.append(time.perf_counter() - t0)
     med = statistics.median(batch_s)
     print("VGA path: 16-frame batch {:.4f} s median of {} (first timed {:.4f} s) = "
-          "{:.2f} frames/s on {} [{}]".format(
-              med, [round(x, 4) for x in batch_s], first_s, N_FRAMES / med, kind, card))
+          "{:.2f} frames/s, host NMS with native.available() {}, on {} [{}]".format(
+              med, [round(x, 4) for x in batch_s], first_s, N_FRAMES / med, _native(), kind,
+              card))
     return launches, results
 
 
@@ -385,29 +437,40 @@ def phase_k2(torch, device, frames):
     n_bad, total, err = _compare(got, ref, "K2")
     del ref
     ms = _median_ms(kernel, torch)
-    pms = _median_ms(plain, torch, warmup=1, iters=5)
+    pms = _median_ms(plain, torch, warmup=1, iters=5, reps=1)
+    # the yardstick samples every slot at its global positions
+    order = sched.device_tables(device)[0]
+    gsy, gsx = windows.sample_positions(boxes, *DENSE_HW, 12, 12)
+    lib_ms = _grid_sample_ms(torch, planes, gsy[order].expand(DENSE_FRAMES, -1, -1),
+                             gsx[order].expand(DENSE_FRAMES, -1, -1))
     bound_ms, bound_by = _bound((planes, sy, sx, tiles), (got,), got.numel())
     print("K2 {} frames {}x{} wsf {}: n_slots {} for {} windows in {} classes {}; "
-          "{} of {} values differ (max {}), kernel {:.4f} ms, plain {:.4f} ms, bound "
-          "{:.4f} ms ({})".format(
+          "{} of {} values differ (max {}), kernel {:.4f} ms, plain {:.4f} ms, grid_sample "
+          "{:.4f} ms, bound {:.4f} ms ({})".format(
               DENSE_FRAMES, DENSE_HW[0], DENSE_HW[1], DENSE_WSF, sched.n_slots,
               plan.n_windows, len(sched.classes),
               [(c.cell_r, c.cell_c, c.n_tiles) for c in sched.classes],
-              n_bad, total, err, ms, pms, bound_ms, bound_by))
+              n_bad, total, err, ms, pms, lib_ms, bound_ms, bound_by))
     return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "library_ms": lib_ms}
 
 
 def phase_k4(torch, device, frames):
     """8. K4 against its plain version at the dense path's capacities."""
-    from rapidobjectdetectionusingcascadedcnns_torch.ops import pyramid, windows_dyn, windows_dyn_cuda
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import (
+        pyramid,
+        windows,
+        windows_dyn,
+        windows_dyn_cuda,
+    )
 
     plan = pyramid.build_plan(*DENSE_HW, 12, 12, 0.075, DENSE_WSF)
     coords = torch.as_tensor(pyramid.window_table(plan)["coords_norm"]).float()
     images_cpu = _dense_images(torch, "cpu", frames)
     images = images_cpu.to(device)
     gen = torch.Generator().manual_seed(7)
-    out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    frame_planes = windows.to_planes_bf16(images)
+    out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     for size, n in DENSE_CAPS_BY_SIZE.items():
         boxes_cpu = coords[torch.randint(0, plan.n_windows, (DENSE_FRAMES, n), generator=gen)]
         boxes = boxes_cpu.to(device)
@@ -431,17 +494,20 @@ def phase_k4(torch, device, frames):
                 windows_dyn.ROW_RUNG, lay["w_pad"])
         ms = _median_ms(lambda: windows_dyn_cuda.resample_rowbound_cuda(*args), torch)
         pms = _median_ms(lambda: windows_dyn.resample_rowbound_plain(*args), torch,
-                         warmup=1, iters=5)
+                         warmup=1, iters=5, reps=1)
+        lib_ms = _grid_sample_ms(
+            torch, frame_planes, *windows.sample_positions(boxes, *DENSE_HW, size, size))
         bound_ms, bound_by = _bound(args[:4], (lay["raw"],), lay["raw"].numel())
         print("K4 {}px x {} boxes x {} frames {}x{}: raw {} of {} values differ (max {}), "
               "merged {} of {} differ (max {}), n_big {} overflow {} (big_cap {}); kernel "
-              "{:.4f} ms, plain {:.4f} ms, bound {:.4f} ms ({})".format(
+              "{:.4f} ms, plain {:.4f} ms, grid_sample {:.4f} ms, bound {:.4f} ms ({})".format(
                   size, n, DENSE_FRAMES, DENSE_HW[0], DENSE_HW[1], n_bad, total, err,
                   m_bad, m_total, m_err, n_big.tolist(), ovf.tolist(), big_cap, ms, pms,
-                  bound_ms, bound_by))
+                  lib_ms, bound_ms, bound_by))
         out["max_abs_err"] = max(out["max_abs_err"], err, m_err)
         out["ms"] += ms
         out["plain_ms"] += pms
+        out["library_ms"] += lib_ms
         out["bound_ms"] += bound_ms
         out["bound_by"] = bound_by
     return out
@@ -474,9 +540,10 @@ def _dense_detect(torch, detector, frames, label, kind, card, repeats=3):
         label, [r.n_survivors_per_stage for r in results],
         [r.reextract_overflows for r in results]))
     print("dense path ({}): launches K1 {} K2 {} K4 {}, saturation re-runs {} in the "
-          "counted batch; {}-frame batch {:.4f} s median of {} = {:.2f} frames/s on {} "
-          "[{}]".format(label, *launches, redispatches, DENSE_FRAMES, med,
-                        [round(x, 4) for x in walls], DENSE_FRAMES / med, kind, card))
+          "counted batch; {}-frame batch {:.4f} s median of {} = {:.2f} frames/s, host NMS "
+          "with native.available() {}, on {} [{}]".format(
+              label, *launches, redispatches, DENSE_FRAMES, med, [round(x, 4) for x in walls],
+              DENSE_FRAMES / med, _native(), kind, card))
     return results, launches
 
 
@@ -588,56 +655,112 @@ def phase_card_vs_cpu_crop(device):
         cf.set(key, value)
 
 
-def _k3_inputs(torch, detector, frames, caps):
-    """K3's inputs on the VGA tail: the last-stage survivor boxes (xywh of
-    ``coords_norm[window_ids]``) and alive masks of one 16-frame run at
-    ``caps``, as (B, caps[-1], 4) f32 and (B, caps[-1]) bool."""
-    entry = detector._plan_and_table(IMG_H, IMG_W)
-    packed = detector._run_chunk(frames, True, caps, entry, None)
+def _k3_inputs(torch, detector, frames, caps, yuv=True):
+    """K3's inputs on a path's tail: the last-stage survivor boxes (xywh of
+    ``coords_norm[window_ids]``) and alive masks of one run of ``frames``
+    at ``caps``, as (B, caps[-1], 4) f32 and (B, caps[-1]) bool."""
+    img_h, img_w = (IMG_H, IMG_W) if yuv else DENSE_HW
+    entry = detector._plan_and_table(img_h, img_w)
+    packed = _quietly(detector._run_chunk, frames, yuv, caps, entry, None)
     c = caps[-1]
     xyxy = entry[2][packed[:, :c].long()].float()
     rects = torch.cat([xyxy[..., :2], xyxy[..., 2:] - xyxy[..., :2]], dim=-1)
     return rects.contiguous(), (packed[:, 2 * c : 3 * c] > 0.5).contiguous()
 
 
-def phase_k3(torch, detector, frames):
-    """11. K3 against its plain version at the VGA tail's shapes: N = 4096
-    (open capacities) and N = 256 (default capacities), eps 0.2 and 0.3."""
+def _k3_call_counts(torch, rects, alive):
+    """Kernel launches (profiler) and host synchronisations (sync debug
+    mode) in one K3 call."""
+    import warnings
+
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import nms_cuda
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        nms_cuda.group_rectangles_cuda(rects, alive, 1, 0.2)
+        torch.cuda.synchronize()
+    kernels = [(e.name.replace("(anonymous namespace)::", "").split("(")[0], e.device_time_total)
+               for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            nms_cuda.group_rectangles_cuda(rects, alive, 1, 0.2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return kernels, syncs
+
+
+def _k3_case(torch, rects, alive, label):
+    """K3 against its plain version at eps 0.2 and 0.3 (every output
+    equal), then its times, bound, launches and synchronisations."""
     from rapidobjectdetectionusingcascadedcnns_torch.ops import nms, nms_cuda
+
+    b, n = alive.shape
+    err = 0.0
+    for eps in (0.2, 0.3):
+        got = nms_cuda.group_rectangles_cuda(rects, alive, 1, eps)
+        ref = nms.group_rectangles_device_plain(rects, alive, 1, eps)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("avg", "counts", "keep", "labels"), got, ref):
+            assert g.shape == r.shape and g.dtype == r.dtype, (name, g.shape, r.shape)
+            n_bad = int((g != r).sum())
+            assert n_bad == 0, ("K3", label, n, eps, name, n_bad)
+            err = max(err, float((g.double() - r.double()).abs().max()))
+        print("K3 {} N={} eps {}: {} survivors, {} clusters kept of {} with count > 1 "
+              "(frames {}); avg, counts, keep, labels equal".format(
+                  label, n, eps, int(alive.sum()), int(got[2].sum()),
+                  int(((got[3] == torch.arange(n, device=rects.device)) & alive
+                       & (got[1] > 1)).sum()), b))
+        del got, ref
+    kernels, syncs = _k3_call_counts(torch, rects, alive)
+    assert len(kernels) <= 4 and syncs <= 1, (kernels, syncs)
+    ms = _median_ms(lambda: nms_cuda.group_rectangles_cuda(rects, alive, 1, 0.2), torch)
+    pms = _median_ms(lambda: nms.group_rectangles_device_plain(rects, alive, 1, 0.2), torch,
+                     warmup=1, iters=3, reps=1)
+    ops_ms = b * n * (n - 1) / 2 * K3_OPS_PER_PAIR / F32_OPS_PER_S * 1e3
+    bytes_ms = b * n * K3_BYTES_PER_ROW / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    print("K3 {} {} frames x N={}: kernel {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms ({}; "
+          "bytes {:.6f} ms; {:.1%} of it); {} kernel launches per call, device us {} (sum "
+          "{:.1f}), and {} host synchronisation(s) per call; workspace {} B".format(
+              label, b, n, ms, pms, bound_ms, bound_by, bytes_ms, bound_ms / ms, len(kernels),
+              [(name, round(us, 1)) for name, us in kernels], sum(us for _, us in kernels),
+              syncs, nms_cuda.workspace_bytes(b, n)))
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def phase_k3(torch, detector, model, frames, dense):
+    """11. K3 against its plain version at the VGA tail's shapes, N = 4096
+    (open capacities) and N = 256 (default capacities), and at the dense
+    path's last stage (4 frames of 450x450 at the default capacities, N =
+    4,224); then the workspace at the dense open rung."""
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import nms_cuda
 
     out = {}
     for caps in (OPEN_CAPS, [CAPS_BY_SIZE[24], CAPS_BY_SIZE[48]]):
-        rects, alive = _k3_inputs(torch, detector, frames, caps)
-        b, n = alive.shape
-        err = 0.0
-        for eps in (0.2, 0.3):
-            got = nms_cuda.group_rectangles_cuda(rects, alive, 1, eps)
-            ref = nms.group_rectangles_device_plain(rects, alive, 1, eps)
-            torch.cuda.synchronize()
-            for name, g, r in zip(("avg", "counts", "keep", "labels"), got, ref):
-                assert g.shape == r.shape and g.dtype == r.dtype, (name, g.shape, r.shape)
-                n_bad = int((g != r).sum())
-                assert n_bad == 0, ("K3", n, eps, name, n_bad)
-                err = max(err, float((g.double() - r.double()).abs().max()))
-            print("K3 N={} eps {}: {} survivors, {} clusters kept of {} with count > 1 "
-                  "(frames {}), {} propagation steps (the JAX tail's {}); avg, counts, keep, "
-                  "labels equal".format(
-                      n, eps, int(alive.sum()), int(got[2].sum()),
-                      int(((got[3] == torch.arange(n, device=rects.device)) & alive
-                           & (got[1] > 1)).sum()), b, nms_cuda.LAST_STEPS,
-                      nms.propagation_steps(n)))
-            del got, ref
-        ms = _median_ms(lambda: nms_cuda.group_rectangles_cuda(rects, alive, 1, 0.2), torch)
-        pms = _median_ms(lambda: nms.group_rectangles_device_plain(rects, alive, 1, 0.2), torch,
-                         warmup=1, iters=3)
-        ops_ms = b * n * n * K3_OPS_PER_PAIR / F32_OPS_PER_S * 1e3
-        bytes_ms = b * n * K3_BYTES_PER_ROW / HBM_BYTES_PER_S * 1e3
-        bound_ms, bound_by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-        print("K3 {} frames x N={}: kernel {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms ({}; "
-              "bytes {:.6f} ms)".format(b, n, ms, pms, bound_ms, bound_by, bytes_ms))
-        out[n] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bound_ms,
-                  "bound_by": bound_by}
-        torch.cuda.empty_cache()
+        out[caps[-1]] = _k3_case(torch, *_k3_inputs(torch, detector, frames, caps), "VGA")
+    cf.set("window_scale_factor", DENSE_WSF)
+    dense_caps = cascade.default_capacity_schedule(DENSE_WINDOWS, model.n_nets)
+    assert list(dense_caps) == list(DENSE_CAPS_BY_SIZE.values()), dense_caps
+    rects, alive = _k3_inputs(torch, cascade.CascadeDetector(model), dense, dense_caps,
+                              yuv=False)
+    cf.set("window_scale_factor", 1.1)
+    out[dense_caps[-1]] = _k3_case(torch, rects, alive, "dense")
+    del rects, alive
+    # the adjacency bitmask K3 kept before (one uint32 word per 32 columns)
+    # beside the two label buffers, counts, sums and status
+    n = DENSE_WINDOWS
+    old_bytes = DENSE_FRAMES * n * ((n + 31) // 32) * 4 + DENSE_FRAMES * n * 44 + 4
+    print("K3 workspace at the dense open rung ({} frames x N={}): {} B (before: {} B with the "
+          "adjacency bitmask)".format(DENSE_FRAMES, n, nms_cuda.workspace_bytes(DENSE_FRAMES, n),
+                                      old_bytes))
     return out
 
 
@@ -677,8 +800,9 @@ def phase_vga_tail(torch, detector, frames, host_results, kind, card):
           "boxes and confidences equal to host NMS on all {} frames; detections per frame {}".format(
               k3, reruns, k1, len(results), [len(r.boxes) for r in results]))
     print("VGA tail: 16-frame batch with the device tail {} s (first timed {:.4f} s), with host "
-          "NMS {} s, on {} [{}]".format([round(x, 4) for x in walls[True]], first_s,
-                                         [round(x, 4) for x in walls[False]], kind, card))
+          "NMS {} s (native.available() {}), on {} [{}]".format(
+              [round(x, 4) for x in walls[True]], first_s, [round(x, 4) for x in walls[False]],
+              _native(), kind, card))
     return k3
 
 
@@ -828,7 +952,7 @@ def phase_k2p(torch, device):
     k2_ms = _median_ms(
         lambda: windows_sched_cuda.resample_sched_cuda(planes, sy, sx, tiles, sched.tile), torch
     )
-    pms = _median_ms(plain, torch, warmup=1, iters=3)
+    pms = _median_ms(plain, torch, warmup=1, iters=3, reps=1)
     tap_values = sum(m.numel() for pair in taps for m in pair)
     n_bytes = (ctx["tap_bytes"] + planes.numel() * planes.element_size()
                + tiles.numel() * tiles.element_size() + n_values * got.element_size())
@@ -1045,9 +1169,10 @@ def _kernel_line(name, source, replaces, launches, m):
         "plain_ms": m["plain_ms"],
         "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"],
-        # no single PyTorch call keeps K1's, K2's, K2p's and K4's two bf16
-        # rounding points, and none computes K3's groupRectangles
-        "library_ms": None,
+        # grid_sample for the bilinear samplers (a yardstick without their
+        # bf16 rounding points); no single PyTorch call computes K3's
+        # groupRectangles
+        "library_ms": m.get("library_ms"),
     }
 
 
@@ -1114,7 +1239,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 11-13. the serving path ---------------------------------------------
-    k3 = phase_k3(torch, detector, frames)
+    k3 = phase_k3(torch, detector, model, frames, dense)
     k3_launches = phase_vga_tail(torch, detector, frames, host_results, kind, card)
     torch.cuda.empty_cache()
     phase_bundle(torch, model, frames, kind, card)
@@ -1122,6 +1247,7 @@ def main() -> int:
 
     # ---- 14. K2p, the profiling tool's path ----------------------------------
     k2p_launches, k2p = phase_k2p(torch, device)
+    k2p["library_ms"] = k2["library_ms"]  # the same windows of the same frames
     torch.cuda.empty_cache()
 
     # ---- 15-17. training -----------------------------------------------------

@@ -46,7 +46,7 @@ from .. import config as cf
 from ..ops import windows_dyn, windows_sched
 from ..ops.color import yuv420_to_rgb
 from ..ops.pyramid import PyramidPlan, build_plan, window_table
-from ..ops.windows import crop_and_resize_impl, extract_windows, level_indices
+from ..ops.windows import crop_and_resize_impl, extract_windows, level_indices, to_planes_bf16
 from ..utils import log
 from ..utils.device import resolve_device, set_numerics
 from . import cnn
@@ -271,6 +271,7 @@ def _stage0_apply(
     resample_impl: str,
     high_precision: bool,
     indices=None,
+    planes=None,
 ):
     """Dense-pyramid stage-0 classification of (B, H, W, C) float32 frames,
     shared by the cascade and the single-net detector.
@@ -280,6 +281,8 @@ def _stage0_apply(
     ``boxes_float`` (N, 4) resampled from the full frame -- by K2 over the
     plan's schedule when there is one, else by K1 (or, with
     ``high_precision``, the f32 gather) over chunks of ``chunk`` boxes.
+    ``planes``: the frames' bf16 planes for K1, when the caller has them
+    (else converted once here, for all chunks).
 
     Returns (probs (B, M, 2), bottleneck (B, M, F), window_ids0 (M,) int64
     or None, valid0 (M,) bool or None): ids/valid are set exactly when K2
@@ -304,11 +307,13 @@ def _stage0_apply(
             probs, bneck = classify(windows_sched.extract_scheduled(images, boxes_float, sched))
             ids, _, valid = sched.device_tables(images.device)
             return probs, bneck, ids, valid
+        if planes is None and not high_precision:
+            planes = to_planes_bf16(images)
         parts = [
             classify(
                 crop_and_resize_impl(
                     images, boxes_float[s : s + chunk].expand(b, -1, 4), size, size,
-                    high_precision,
+                    high_precision, planes,
                 )
             )
             for s in range(0, boxes_float.shape[0], chunk)
@@ -362,10 +367,13 @@ def cascade_core(
     images = images.float()
     img_h = images.shape[1]
 
+    # K1's bf16 planes, converted once for every re-extraction of the chunk
+    planes = None if high_precision else to_planes_bf16(images)
+
     mean0, std0 = stage_stats[0]
     probs0, bottleneck, ids0, valid0 = _stage0_apply(
         images, boxes_float, plan, stage_params[0], stage_configs[0], mean0, std0,
-        chunk, extraction_mode, resample_impl, high_precision, indices,
+        chunk, extraction_mode, resample_impl, high_precision, indices, planes,
     )
     n0 = probs0.shape[1]
     p_fg = probs0[..., 1]
@@ -401,7 +409,7 @@ def cascade_core(
                 big_cap=windows_dyn.default_big_cap(cap, size_i, size_i, img_h),
             )
         else:
-            wins = crop_and_resize_impl(images, boxes, size_i, size_i, high_precision)
+            wins = crop_and_resize_impl(images, boxes, size_i, size_i, high_precision, planes)
             overflow = torch.zeros(b, dtype=torch.long, device=images.device)
         overflows.append(overflow)
         mean_i, std_i = stage_stats[i]

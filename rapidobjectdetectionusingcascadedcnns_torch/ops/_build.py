@@ -33,11 +33,11 @@ NVCC_FLAGS = (
 # c_float.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "resample": ("rodc_resample", [_P, _P, _P, _P] + [_I] * 7 + [_P]),
+    "resample": ("rodc_resample", [_P, _P, _P, _P] + [_I] * 9 + [_P]),
     "sched": ("rodc_sched", [_P] * 5 + [_I] * 8 + [_P]),
     "sched_precomp": ("rodc_sched_precomp", [_P] * 5 + [_I] * 13 + [_P]),
     "rowbound": ("rodc_rowbound", [_P] * 5 + [_I] * 10 + [_P]),
-    "cluster": ("rodc_cluster", [_I] + [_P] * 13 + [_I] * 4 + [_F, _P]),
+    "cluster": ("rodc_cluster", [_P] * 7 + [_I] * 3 + [_F, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

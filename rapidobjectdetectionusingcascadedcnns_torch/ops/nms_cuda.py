@@ -4,17 +4,19 @@ last-stage survivors, batched over frames (the on-device NMS tail).
 Replaces the Pallas TPU kernel ``ops/nms_pallas.py::_cluster_kernel``
 (driven by ``group_rectangles_pallas``) of the JAX package, together with
 the containment pass its caller applies: it computes the JAX package's
-``group_rectangles_jax`` with eps as an argument and the label
-propagation run to convergence (see ``nms.group_rectangles_device_plain``).
-The CUDA source is ``csrc/cluster.cu``; its header says what each launch
-computes.
+``group_rectangles_jax`` with eps as an argument and the labels at their
+fixed point, the connected components of the SimilarRects graph (see
+``nms.group_rectangles_device_plain``). The CUDA source is
+``csrc/cluster.cu``; its header says what each launch computes.
 
-What bounds it on an H100: the SimilarRects adjacency, B * N^2 * ~16 f32
-operations (about 0.06 ms at 16 frames of N = 4096); the bytes in and out
-are B * N * ~42. The TPU kernel keeps an (N, N) adjacency in VMEM, which
-caps N near 1536; the tail meets N = 4096 on the VGA path's open rung and
-N = 131,903 on the dense path's, so the adjacency is a bitmask in global
-memory (32 MB at 16 x 4096, L2-resident).
+What bounds it on an H100: the pair tests, B * N(N-1)/2 * ~16 f32
+operations (0.032 ms at 16 frames of N = 4096); the bytes in and out are
+B * N * ~46. The TPU kernel keeps an (N, N) adjacency in VMEM and
+propagates labels step by step; here a lock-free union-find (hook to the
+smaller root) reaches the components in one pass over the pairs, with no
+adjacency stored: the workspace is O(B * N) (:func:`workspace_bytes`). A
+call is four launches whatever the data, in one ctypes call, and one host
+synchronisation, on the status word.
 
 Its plain version is ``nms.group_rectangles_device_plain`` at the same
 interface. A CUDA tensor goes to the kernel, a CPU tensor to the plain
@@ -27,22 +29,16 @@ import ctypes
 
 import torch
 
-from . import nms
-
 # Tail calls since the last reset (one per call, whatever the number of
 # launches inside): incremented only where the kernel is launched.
 LAUNCHES = 0
-# propagation steps per call after the JAX tail's count, until one changes nothing
-EXTRA_STEPS = 4
-# propagation steps the last call ran (the JAX tail's count, or more)
-LAST_STEPS = 0
 
 
 def workspace_bytes(b: int, n: int) -> int:
-    """Device workspace of one call: the adjacency bitmask, two label
-    buffers, the per-slot counts and int64 sums, the status word."""
-    words = (n + 31) // 32
-    return b * n * words * 4 + b * n * (3 * 4 + 4 * 8) + 4
+    """Device workspace of one call, one allocation: int64 sums (4 per
+    row), int32 parents and counts (1 each per row), the int32 status
+    word. O(B * N): no adjacency is stored."""
+    return b * n * (4 * 8 + 2 * 4) + 4
 
 
 def group_rectangles_cuda(
@@ -53,11 +49,9 @@ def group_rectangles_cuda(
     4) int32, ``counts`` (B, N) int32, ``keep`` (B, N) bool, ``labels``
     (B, N) int64, as :func:`nms.group_rectangles_device_plain`.
 
-    Raises ``ValueError`` when the workspace does not fit in the card's
-    free memory, and when a valid coordinate is not an integer or a
-    cluster sum reaches 2^24. Synchronises once per round of propagation
-    steps (to test convergence) and once on the status word."""
-    global LAUNCHES, LAST_STEPS
+    Raises ``ValueError`` when a valid coordinate is not an integer or a
+    cluster sum reaches 2^24. Synchronises once, to read the status word."""
+    global LAUNCHES
     if not rects.is_cuda:
         raise ValueError("K3 runs on CUDA tensors only; got {}".format(rects.device))
     if rects.dtype != torch.float32 or valid.dtype != torch.bool:
@@ -76,53 +70,24 @@ def group_rectangles_cuda(
         raise ValueError("K3 operands must be contiguous")
     b, n = valid.shape
     dev = rects.device
-    need = workspace_bytes(b, n)
-    free, _ = torch.cuda.mem_get_info(dev)
-    free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
-    if need > free:
-        raise ValueError(
-            "K3 at N = {} ({} frames) needs {} bytes of workspace; {} are free".format(
-                n, b, need, free
-            )
-        )
-    words = (n + 31) // 32
-    adj = torch.empty(b * n * words, dtype=torch.int32, device=dev)
-    label_a = torch.empty(b, n, dtype=torch.int32, device=dev)
-    label_b = torch.empty(b, n, dtype=torch.int32, device=dev)
-    counts_ws = torch.zeros(b, n, dtype=torch.int32, device=dev)
-    sums_ws = torch.zeros(b, n, 4, dtype=torch.int64, device=dev)
-    status = torch.zeros(1, dtype=torch.int32, device=dev)
-    changed = torch.zeros(1, dtype=torch.int32, device=dev)
     avg = torch.empty(b, n, 4, dtype=torch.int32, device=dev)
     counts = torch.empty(b, n, dtype=torch.int32, device=dev)
     keep = torch.empty(b, n, dtype=torch.bool, device=dev)
     labels = torch.empty(b, n, dtype=torch.int64, device=dev)
+    if b * n == 0:  # nothing to launch
+        return avg, counts, keep, labels
+    workspace = torch.empty((workspace_bytes(b, n) + 7) // 8, dtype=torch.int64, device=dev)
+    # the status word follows the sums (8 int32 a row), parents and counts
+    status = workspace.view(torch.int32)[b * n * 10]
     from . import _build
 
-    fn = _build.load("cluster").rodc_cluster
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def launch(phase, steps=0):
-        err = fn(
-            phase, rects.data_ptr(), valid.data_ptr(), adj.data_ptr(), label_a.data_ptr(),
-            label_b.data_ptr(), counts_ws.data_ptr(), sums_ws.data_ptr(), status.data_ptr(),
-            changed.data_ptr(), avg.data_ptr(), counts.data_ptr(), keep.data_ptr(),
-            labels.data_ptr(), b, n, steps, int(min_neighbors), ctypes.c_float(eps * 0.5),
-            stream,
-        )
-        if err != 0:
-            raise RuntimeError("K3 launch failed (phase {}): cudaError {}".format(phase, err))
-
-    launch(0)
-    steps, LAST_STEPS = nms.propagation_steps(n), 0
-    while True:  # until a step leaves every label where it was
-        changed.zero_()
-        launch(1, steps)
-        LAST_STEPS += steps
-        if not int(changed.item()):
-            break
-        steps = EXTRA_STEPS
-    launch(2)
+    err = _build.load("cluster").rodc_cluster(
+        rects.data_ptr(), valid.data_ptr(), workspace.data_ptr(), avg.data_ptr(),
+        counts.data_ptr(), keep.data_ptr(), labels.data_ptr(), b, n, int(min_neighbors),
+        ctypes.c_float(eps * 0.5), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError("K3 launch failed: cudaError {}".format(err))
     LAUNCHES += 1
     flags = int(status.item())
     if flags & 1:

@@ -217,12 +217,15 @@ def crop_and_resize_impl(
     out_h: int,
     out_w: int,
     high_precision: bool,
+    planes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Re-extraction of u8-quantized windows: high precision -> the f32
     gather (any device); otherwise K1's wrapper, which launches the kernel
-    for a CUDA tensor and runs the plain version for a CPU tensor."""
+    for a CUDA tensor and runs the plain version for a CPU tensor.
+    ``planes``: ``to_planes_bf16(images)`` when the caller has it already
+    (K1 samples those; the high-precision gather ignores them)."""
     if high_precision:
         return crop_and_resize_plain(images, boxes, out_h, out_w, high_precision=True)
     from . import windows_cuda
 
-    return windows_cuda.crop_and_resize(images, boxes, out_h, out_w)
+    return windows_cuda.crop_and_resize(images, boxes, out_h, out_w, planes)

@@ -201,19 +201,117 @@ def test_k3_matches_plain(card, eps):
 
 
 def test_k3_long_chain_converges(card):
-    """A chain of 600 boxes in shuffled row order needs far more than the
-    JAX tail's 11 propagation steps: K3 runs on to one component, as its
-    plain version and the host union-find do."""
+    """A chain of 600 boxes in shuffled row order, which min-label
+    propagation would need far more than the JAX tail's 11 steps to
+    label: K3's union-find joins it into one component in its fixed four
+    launches, as its plain version and the host union-find do."""
     order = np.random.RandomState(3).permutation(600)
     rects = np.zeros((1, 600, 4), np.float32)
     rects[0, order] = [(10 + 5 * k, 50, 40, 40) for k in range(600)]
     valid = torch.ones(1, 600, dtype=torch.bool)
     got = nms_cuda.group_rectangles_cuda(torch.from_numpy(rects).to(card), valid.to(card), 1, 0.2)
-    assert nms_cuda.LAST_STEPS > nms.propagation_steps(600)
     ref = nms.group_rectangles_device_plain(torch.from_numpy(rects), valid, 1, 0.2)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g.cpu(), r, rtol=0, atol=0)
     assert (ref[3] == 0).all() and int(ref[2].sum()) == 1
+
+
+def _k3_case(case):
+    """(rects (B, N, 4), valid (B, N)) of one K3 edge case."""
+    rng = np.random.RandomState(11)
+    if case == "one row":
+        return torch.tensor([[[10.0, 20.0, 30.0, 30.0]]]), torch.ones(1, 1, dtype=torch.bool)
+    if case == "all similar":  # every pair similar: every join contends for one root
+        n = 2000
+        xy = 100 + rng.randint(-2, 3, (1, n, 2))
+        wh = 60 + rng.randint(-2, 3, (1, n, 2))
+        rects = np.concatenate([xy, wh], -1).astype(np.float32)
+        return torch.from_numpy(rects), torch.ones(1, n, dtype=torch.bool)
+    # ragged: N not a multiple of the 128-row tile; invalid rows interleaved
+    b, n = 3, 1000 if case == "ragged" else 517
+    centers = rng.randint(0, 500, (b, 40, 2))
+    pick = rng.randint(0, 40, (b, n))
+    xy = np.take_along_axis(centers, pick[..., None].repeat(2, -1), 1) + rng.randint(-3, 4, (b, n, 2))
+    wh = 30 + pick[..., None] * 3 + rng.randint(-2, 3, (b, n, 2))
+    rects = np.concatenate([xy, wh], -1).astype(np.float32)
+    if case == "ragged":
+        valid = np.ones((b, n), bool)
+    else:
+        valid = np.zeros((b, n), bool)
+        valid[:, ::2] = True
+        valid[1, 1::7] = True
+    return torch.from_numpy(rects), torch.from_numpy(valid)
+
+
+@pytest.mark.parametrize("case", ["one row", "ragged", "interleaved invalid", "all similar"])
+def test_k3_edge_cases(card, case):
+    """K3 against its plain version: N = 1; N not a multiple of the tile;
+    invalid rows interleaved with valid ones; one frame in which every box
+    is similar to every other (heavy contention on one root)."""
+    rects, valid = _k3_case(case)
+    got = nms_cuda.group_rectangles_cuda(rects.to(card), valid.to(card), 1, 0.2)
+    ref = nms.group_rectangles_device_plain(rects, valid, 1, 0.2)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype
+        torch.testing.assert_close(g.cpu(), r, rtol=0, atol=0)
+    if case == "all similar":
+        assert (ref[3] == 0).all() and int(ref[1][0, 0]) == valid.shape[1]
+
+
+def test_k3_repeatable(card):
+    """Two calls on the same input give bit-identical outputs, though the
+    atomics run in another order each time."""
+    rects, valid = _k3_case("interleaved invalid")
+    rects, valid = rects.to(card), valid.to(card)
+    first = nms_cuda.group_rectangles_cuda(rects, valid, 1, 0.3)
+    second = nms_cuda.group_rectangles_cuda(rects, valid, 1, 0.3)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _k1_case(case):
+    """(images (B, H, W, 3), boxes (B, N, 4), out) of one K1 edge case."""
+    rng = np.random.RandomState(21)
+    h, w = 90, 130
+    b = 1 if case == "one frame" else 2
+    images = torch.from_numpy((rng.rand(b, h, w, 3) * 255).astype(np.float32))
+    if case == "edges":  # boxes ending at the right and bottom edges
+        x0 = rng.randint(0, w - 8, (b, 40))
+        y0 = rng.randint(0, h - 8, (b, 40))
+        boxes = np.stack([x0, y0, np.full_like(x0, w), np.full_like(y0, h)], -1)
+        boxes[:, 20:, 1] = 0
+        boxes[:, 30:, 2] = x0[:, 30:] + 8
+        return images, torch.from_numpy(boxes.astype(np.float32)), 24
+    if case == "upsampling":  # boxes smaller than the output: several ox per column
+        x0 = rng.uniform(0, w - 12, (b, 30))
+        y0 = rng.uniform(0, h - 12, (b, 30))
+        side = rng.uniform(2, 20, (b, 30))
+        boxes = np.stack([x0, y0, x0 + side, y0 + side], -1)
+        return images, torch.from_numpy(boxes.astype(np.float32)), 48
+    n = 0 if case == "no boxes" else 37
+    boxes = _boxes(rng, b, n, h, w) if n else torch.zeros(b, 0, 4)
+    return images, boxes, 12 if case == "12 px" else 24
+
+
+@pytest.mark.parametrize("case", ["edges", "upsampling", "12 px", "one frame", "no boxes"])
+def test_k1_edge_cases(card, case):
+    """K1 against its plain version: boxes at the frame's right and bottom
+    edges (the zero tap on row H / column W), boxes smaller than the
+    output, 12 px (five boxes per block, a ragged last block), one frame
+    (a single-frame re-dispatch) and no boxes at all."""
+    images, boxes, out = _k1_case(case)
+    h, w = images.shape[1:3]
+    sy, sx = windows.sample_positions(boxes, h, w, out, out)
+    planes = windows.to_planes_bf16(images)
+    before = windows_cuda.LAUNCHES
+    got = windows_cuda.crop_and_resize_cuda(
+        planes.to(card), sy.contiguous().to(card), sx.contiguous().to(card)
+    )
+    assert windows_cuda.LAUNCHES == before + (1 if boxes.shape[1] else 0)
+    ref = windows.resample_plain(planes, sy, sx)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (images.shape[0], boxes.shape[1], out, out, 3)
+    assert torch.equal(got.cpu(), ref)
 
 
 def test_k2p_matches_plain_and_k2(card):
