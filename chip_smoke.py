@@ -29,9 +29,13 @@ Phases (each checked; any failure exits non-zero):
      pyramid as the default capacities (16,512 at 24 px, 4,224 at 48 px);
   7. K2 (csrc/sched.cu) against its plain version on every slot of the
      FDDB-density schedule: 4 frames of 450x450 at scale factor 1.005;
+     its shared memory a block, the share of its byte bound reached, and
+     the tiles whose support exceeds its staging budget
+     (``windows_sched_cuda.staging_bytes``);
   8. K4 (csrc/rowbound.cu) against its plain version on 450x450 frames with
      the dense path's default capacities of plan boxes (16,512 at 24 px,
-     4,224 at 48 px): raw and merged windows, n_big and overflow;
+     4,224 at 48 px): raw and merged windows, n_big and overflow; its slots
+     and shared memory a block and the share of its byte bound reached;
   9. the dense path: ``CascadeDetector.detect_batch`` on 4 synthetic
      450x450 frames at scale factor 1.005 (crop mode, K2 stage 0), with
      enough re-dispatch retries to reach the open capacities, then
@@ -410,6 +414,7 @@ def _dense_images(torch, device, frames):
 def phase_k2(torch, device, frames):
     """7. K2 against its plain version on every slot of the FDDB-density
     schedule."""
+    import numpy as np
     from rapidobjectdetectionusingcascadedcnns_torch.ops import (
         pyramid,
         windows,
@@ -444,13 +449,20 @@ def phase_k2(torch, device, frames):
     lib_ms = _grid_sample_ms(torch, planes, gsy[order].expand(DENSE_FRAMES, -1, -1),
                              gsx[order].expand(DENSE_FRAMES, -1, -1))
     bound_ms, bound_by = _bound((planes, sy, sx, tiles), (got,), got.numel())
+    smem, budget = windows_sched_cuda.launch_geometry(sched.tile, 12, 12, planes.shape[1])
+    staged = windows_sched_cuda.staging_bytes(sy, sx, tiles, sched.tile, planes.shape[1],
+                                              *DENSE_HW)
+    n_direct = int(((staged < 0) | (staged > budget)).sum())
     print("K2 {} frames {}x{} wsf {}: n_slots {} for {} windows in {} classes {}; "
           "{} of {} values differ (max {}), kernel {:.4f} ms, plain {:.4f} ms, grid_sample "
-          "{:.4f} ms, bound {:.4f} ms ({})".format(
+          "{:.4f} ms, bound {:.4f} ms ({}), {:.1%} of the bound reached; {} B shared a "
+          "block, staging budget {} B, staged support per tile median {:.0f} B max {} B, "
+          "{} of {} tiles over the budget (sampled from the planes)".format(
               DENSE_FRAMES, DENSE_HW[0], DENSE_HW[1], DENSE_WSF, sched.n_slots,
               plan.n_windows, len(sched.classes),
               [(c.cell_r, c.cell_c, c.n_tiles) for c in sched.classes],
-              n_bad, total, err, ms, pms, lib_ms, bound_ms, bound_by))
+              n_bad, total, err, ms, pms, lib_ms, bound_ms, bound_by, bound_ms / ms, smem,
+              budget, float(np.median(staged)), int(staged.max()), n_direct, sched.n_tiles))
     return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms}
 
@@ -498,12 +510,14 @@ def phase_k4(torch, device, frames):
         lib_ms = _grid_sample_ms(
             torch, frame_planes, *windows.sample_positions(boxes, *DENSE_HW, size, size))
         bound_ms, bound_by = _bound(args[:4], (lay["raw"],), lay["raw"].numel())
+        per_block, smem = windows_dyn_cuda.launch_geometry(size, size, frame_planes.shape[1])
         print("K4 {}px x {} boxes x {} frames {}x{}: raw {} of {} values differ (max {}), "
               "merged {} of {} differ (max {}), n_big {} overflow {} (big_cap {}); kernel "
-              "{:.4f} ms, plain {:.4f} ms, grid_sample {:.4f} ms, bound {:.4f} ms ({})".format(
+              "{:.4f} ms, plain {:.4f} ms, grid_sample {:.4f} ms, bound {:.4f} ms ({}), "
+              "{:.1%} of the bound reached; {} slots and {} B shared a block".format(
                   size, n, DENSE_FRAMES, DENSE_HW[0], DENSE_HW[1], n_bad, total, err,
                   m_bad, m_total, m_err, n_big.tolist(), ovf.tolist(), big_cap, ms, pms,
-                  lib_ms, bound_ms, bound_by))
+                  lib_ms, bound_ms, bound_by, bound_ms / ms, per_block, smem))
         out["max_abs_err"] = max(out["max_abs_err"], err, m_err)
         out["ms"] += ms
         out["plain_ms"] += pms
@@ -1177,6 +1191,7 @@ def _kernel_line(name, source, replaces, launches, m):
 
 
 def main() -> int:
+    started = time.perf_counter()
     import torch
 
     # ---- 1. environment ------------------------------------------------
@@ -1264,6 +1279,7 @@ def main() -> int:
         if m.split(".")[0] in ("jax", "rapidobjectdetectionusingcascadedcnns_tpu")
     )
     assert not loaded, "the port imported {}".format(loaded)
+    print("chip_smoke: every phase passed in {:.1f} s".format(time.perf_counter() - started))
     print(card)
     print(json.dumps({"kernels": [
         _kernel_line("K1 crop_and_resize (VGA path re-extraction)", "resample.cu",

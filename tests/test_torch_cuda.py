@@ -141,6 +141,93 @@ def test_k4_matches_plain(card, size):
     assert n_big.tolist() == n_big_ref.tolist() and ovf.tolist() == ovf_ref.tolist()
 
 
+def _k2_case(case, c):
+    """(planes (B, C, H, W) bf16, sy_local, sx_local, tiles, tile) of one K2
+    edge case, on the CPU."""
+    rng = np.random.RandomState(9)
+    tile = windows_sched._tile_windows(12, 12)
+    if case in ("over budget", "wide"):
+        # synthetic tiles: 32 windows spread over a 256x256 cell (support
+        # up to 256 x 256 pixels, past the staging budget), or one cell
+        # 4,352 columns wide (more than the kernel's bitmap covers)
+        h, w = (256, 300) if case == "over budget" else (64, 4300)
+        cells = [[0, 0, 256, 256], [0, 0, 256, 512]] if case == "over budget" else [[0, 0, 64, 4352]]
+        tiles = torch.tensor(cells, dtype=torch.int32)
+        n = tile * len(cells)
+        sy = torch.from_numpy(np.sort(rng.uniform(0, h - 1, (n, 12)), 1).astype(np.float32))
+        sx = torch.from_numpy(np.sort(rng.uniform(0, w - 1, (n, 12)), 1).astype(np.float32))
+    else:
+        # a real schedule of a frame whose cells reach past its bottom and
+        # right edges; "leaves cell" moves one tile's rows 3.3 above its
+        # cell and another tile's columns past its cell's right end
+        h, w = 200, 300
+        plan = pyramid.build_plan(h, w, 12, 12, 0.075, 1.25)
+        boxes = torch.as_tensor(pyramid.window_table(plan)["boxes_float"]).float()
+        sched = windows_sched.build_schedule(boxes.numpy(), h, w, 12, 12)
+        sy, sx, tiles = windows_sched.scheduled_positions(boxes, sched, torch.device("cpu"))
+        if case == "leaves cell":
+            sy[:tile] -= 3.3
+            sx[tile : 2 * tile] += float(tiles[1, 3]) - 5.0
+    images = torch.from_numpy(rng.randint(0, 256, (2, h, w, c)).astype(np.float32))
+    return windows.to_planes_bf16(images), sy.contiguous(), sx.contiguous(), tiles, tile
+
+
+@pytest.mark.parametrize(
+    "case, c",
+    [("edges", 3), ("edges", 1), ("leaves cell", 3), ("over budget", 3), ("over budget", 1),
+     ("wide", 1)],
+)
+def test_k2_edge_cases(card, case, c):
+    """K2 against its plain version, bit for bit: tiles on the frame's
+    bottom and right edges (rows and columns past the image), taps that
+    leave their tile's cell, 1 and 3 channels, and tiles that the kernel
+    samples from the planes instead of staging (a support over the budget;
+    a cell wider than the bitmap)."""
+    planes, sy, sx, tiles, tile = _k2_case(case, c)
+    _, budget = windows_sched_cuda.launch_geometry(tile, 12, 12, c)
+    sizes = windows_sched_cuda.staging_bytes(sy, sx, tiles, tile, c, *planes.shape[2:])
+    direct = (sizes < 0) | (sizes > budget)
+    assert bool(direct.all()) if case in ("over budget", "wide") else not direct.any()
+    args = [t.to(card) for t in (planes, sy, sx, tiles)]
+    before = windows_sched_cuda.LAUNCHES
+    got = windows_sched_cuda.resample_sched_cuda(*args, tile)
+    assert windows_sched_cuda.LAUNCHES == before + 1
+    ref = windows_sched.resample_sched_plain(*args, tile)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(got.cpu(), windows_sched.resample_sched_plain(planes, sy, sx, tiles, tile))
+
+
+@pytest.mark.parametrize("size, c", [(12, 3), (12, 1), (24, 3), (24, 1), (48, 3), (48, 1)])
+def test_k4_edge_cases(card, size, c):
+    """K4 against its plain version, bit for bit, on three frames of
+    150x200 (w_pad 256): cells that start near the bottom edge (rows past
+    the image), columns past the right edge, rows above and below the
+    cell, 1 and 3 channels; at 12 px the 288 slots end on a partial block
+    (5 or 15 slots a block) and blocks span tiles and frames."""
+    rng = np.random.RandomState(size + c)
+    b, h, w, w_pad = 3, 150, 200, 256
+    tile = windows_sched._tile_windows(size, size)
+    n_tiles = 3
+    n_pad = tile * n_tiles
+    images = torch.from_numpy((rng.rand(b, h, w, c) * 255).astype(np.float32))
+    planes = windows.to_planes_bf16(images)
+    sy = torch.from_numpy(np.sort(rng.uniform(-3, 131, (b, n_pad, size)), -1).astype(np.float32))
+    sx = torch.from_numpy(np.sort(rng.uniform(-1, w_pad + 1, (b, n_pad, size)), -1).astype(np.float32))
+    cell_start = torch.from_numpy((rng.randint(0, 5, (b, n_tiles)) * 32).astype(np.int32))
+    args = (planes, sy, sx, cell_start, tile, windows_dyn.ROW_RUNG, w_pad)
+    on_card = [t.to(card) if isinstance(t, torch.Tensor) else t for t in args]
+    before = windows_dyn_cuda.LAUNCHES
+    got = windows_dyn_cuda.resample_rowbound_cuda(*on_card)
+    assert windows_dyn_cuda.LAUNCHES == before + 1
+    ref = windows_dyn.resample_rowbound_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
+    if size == 12:
+        per_block, _ = windows_dyn_cuda.launch_geometry(size, size, c)
+        assert (b * n_pad) % per_block
+
+
 @pytest.mark.parametrize(
     "mode, dyn", [("gather", "off"), ("crop", "off"), ("crop", "on")]
 )

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time kernels K1 and K3 of two checkouts of the PyTorch port on one CUDA
-card, in turns, at the shapes ``chip_smoke.py`` uses.
+"""Time kernels K1, K2, K3 and K4 of two checkouts of the PyTorch port on
+one CUDA card, in turns, at the shapes ``chip_smoke.py`` uses.
 
     python3 tools/compare_torch_kernels.py OTHER_DIR
 
@@ -15,10 +15,16 @@ samples, each 10 calls back to back between two CUDA events):
   * K1 (``windows_cuda.crop_and_resize_cuda``): 16 VGA frames with 640
     boxes at 24 px and 256 at 48 px, and 4 frames of 450x450 with 16,512
     boxes at 24 px and 4,224 at 48 px (window boxes of each pyramid);
+  * K2 (``windows_sched_cuda.resample_sched_cuda``): every slot of the
+    FDDB-density schedule (4 frames of 450x450 at scale factor 1.005,
+    132,480 slots at 12 px), as phase 7 of ``chip_smoke.py``;
   * K3 (``nms_cuda.group_rectangles_cuda``, min_neighbors 1, eps 0.2): the
     VGA batch's last-stage survivors at capacities [5061, 4096] (N = 4096)
     and [640, 256] (N = 256), and the dense batch's at [16512, 4224]
-    (N = 4,224), with random weights from seed 0.
+    (N = 4,224), with random weights from seed 0;
+  * K4 (``windows_dyn_cuda.resample_rowbound_cuda``): the same 4 frames
+    with 16,512 plan boxes at 24 px and 4,224 at 48 px drawn as phase 8 of
+    ``chip_smoke.py`` draws them, laid out by ``windows_dyn.small_class``.
 
 Prints one line per process and a summary with the card's name and power
 limit; the numbers also go to ``chiprun_out/compare_kernels.json``.
@@ -40,10 +46,12 @@ sys.path.insert(0, ".")
 from rapidobjectdetectionusingcascadedcnns_torch import config as cf
 from rapidobjectdetectionusingcascadedcnns_torch.data import synthetic
 from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
-from rapidobjectdetectionusingcascadedcnns_torch.ops import _build, nms_cuda, pyramid, windows, windows_cuda
+from rapidobjectdetectionusingcascadedcnns_torch.ops import (
+    _build, nms_cuda, pyramid, windows, windows_cuda, windows_dyn, windows_dyn_cuda, windows_sched,
+    windows_sched_cuda)
 from rapidobjectdetectionusingcascadedcnns_torch.ops.color import rgb_to_yuv420, yuv420_to_rgb
 
-_build.build(["resample", "cluster"])
+_build.build(["resample", "sched", "cluster", "rowbound"])
 dev = torch.device("cuda")
 out = {}
 
@@ -80,6 +88,29 @@ def k3(label, det, frames, caps, yuv, hw):
     out["K3 {} {} frames x N = {}".format(label, alive.shape[0], c)] = median_ms(
         lambda: nms_cuda.group_rectangles_cuda(rects, alive, 1, 0.2))
 
+def k2(images, plan):
+    sched = windows_sched.schedule_for_plan(plan, 12, 12)
+    boxes = torch.as_tensor(pyramid.window_table(plan)["boxes_float"], device=dev)
+    sy, sx, tiles = windows_sched.scheduled_positions(boxes, sched, dev)
+    planes = windows.to_planes_bf16(images)
+    out["K2 dense {} frames x {} slots at 12 px".format(planes.shape[0], sched.n_slots)] = median_ms(
+        lambda: windows_sched_cuda.resample_sched_cuda(planes, sy, sx, tiles, sched.tile))
+
+def k4(images, plan):
+    coords = torch.as_tensor(pyramid.window_table(plan)["coords_norm"]).float()
+    gen = torch.Generator().manual_seed(7)
+    for size, n in ((24, 16512), (48, 4224)):
+        boxes = coords[torch.randint(0, plan.n_windows, (images.shape[0], n), generator=gen)]
+        lay = windows_dyn.small_class(images, boxes.to(dev), size, size)
+        args = (lay["planes"], lay["sy_local"], lay["sx"], lay["cell_start"], lay["tile"],
+                windows_dyn.ROW_RUNG, lay["w_pad"])
+        out["K4 dense {} frames x {} boxes at {} px".format(images.shape[0], n, size)] = median_ms(
+            lambda: windows_dyn_cuda.resample_rowbound_cuda(*args))
+
+dense = [synthetic.make_scene(450, 450, n_faces=3, seed=100 + s, min_face=40, max_face=160).image
+         for s in range(4)]
+plan = pyramid.build_plan(450, 450, 12, 12, 0.075, 1.005)
+dense_images = torch.as_tensor(np.stack(dense), device=dev).float()
 model = cascade.build_cascade_model(seed=0, device=dev)
 det = cascade.CascadeDetector(model)
 vga = [rgb_to_yuv420(synthetic.make_scene(480, 640, n_faces=3, seed=s, min_face=48,
@@ -88,16 +119,15 @@ y = torch.as_tensor(np.stack([f[0] for f in vga]), device=dev)
 uv = torch.as_tensor(np.stack([f[1] for f in vga]), device=dev)
 k1("VGA", windows.to_planes_bf16(yuv420_to_rgb(y, uv)), det._plan_and_table(480, 640)[2].float(),
    [(24, 640), (48, 256)])
-dense = [synthetic.make_scene(450, 450, n_faces=3, seed=100 + s, min_face=40, max_face=160).image
-         for s in range(4)]
-plan = pyramid.build_plan(450, 450, 12, 12, 0.075, 1.005)
-k1("dense", windows.to_planes_bf16(torch.as_tensor(np.stack(dense), device=dev).float()),
+k1("dense", windows.to_planes_bf16(dense_images),
    torch.as_tensor(pyramid.window_table(plan)["coords_norm"], device=dev).float(),
    [(24, 16512), (48, 4224)])
+k2(dense_images, plan)
 k3("VGA", det, vga, [5061, 4096], True, (480, 640))
 k3("VGA", det, vga, [640, 256], True, (480, 640))
 cf.set("window_scale_factor", 1.005)
 k3("dense", cascade.CascadeDetector(model), dense, [16512, 4224], False, (450, 450))
+k4(dense_images, plan)
 print("RESULT " + json.dumps(out))
 '''
 
