@@ -71,8 +71,11 @@ Phases (each checked; any failure exits non-zero):
      tools/profile_torch_sched_precomp.py: its ``profile`` at FDDB density
      (4 frames of 450x450 at scale factor 1.005; builds the tap matrices,
      K2p against K2 on the same frames, times both) with the launch counts
-     reset just before and read just after; then K2p against its plain
-     version and against K2, bit-equal, with times and K2p's bound;
+     reset just before and read just after (one launch a call); then K2p
+     against its plain version and against K2, bit-equal, at FDDB density
+     and at the VGA geometry (480x640 at 1.1, 768-wide cells), its two-tap
+     violation count (0), its time beside its bound, ``grid_sample`` and
+     K2, and the rate at which it reads the taps;
   15. full-width training: ``CascadeTrainer`` on the card with the
      reference default architecture (3 nets of 12/24/48 px, conv [32], fc1
      512, bf16, batch 1200, momentum SGD, dropout 0.5, online augmentation,
@@ -921,12 +924,43 @@ def _load_tool(name):
     return module
 
 
-def phase_k2p(torch, device):
-    """14. K2p on its path (the profiling tool at FDDB density), then
-    against its plain version and against K2. Returns K2p's launches on the
-    path and its kernel-line numbers."""
+def _k2p_hold(torch, k2p_mod, ctx):
+    """K2p on one geometry of the profiling tool (``ctx`` of its
+    ``setup``) against its plain version and against K2, bit for bit.
+    Returns (planes, tiles, sy, sx, n_values, max |diff|)."""
     from rapidobjectdetectionusingcascadedcnns_torch.ops import (
         windows,
+        windows_sched,
+        windows_sched_cuda,
+    )
+
+    sched, taps, device = ctx["sched"], ctx["taps"], ctx["frames"].device
+    _, tiles, _ = sched.device_tables(device)
+    planes = windows.to_planes_bf16(ctx["frames"])
+    sy, sx, _ = windows_sched.scheduled_positions(ctx["boxes"], sched, device)
+    got = k2p_mod.resample_sched_precomp_cuda(planes, taps, tiles, sched)
+    ref = windows_sched.resample_sched_precomp_plain(planes, taps, tiles, sched)
+    k2 = windows_sched_cuda.resample_sched_cuda(planes, sy, sx, tiles, sched.tile)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == k2.shape, (got.shape, ref.shape, k2.shape)
+    n_bad = int((got != ref).sum())
+    n_bad_k2 = int((got != k2).sum())
+    assert n_bad == 0 and n_bad_k2 == 0, ("K2p", ctx["which"], n_bad, n_bad_k2)
+    err = float((got.float() - ref.float()).abs().max())
+    print("K2p {}: {} frames, {} tiles in {} classes, {:.1f} MB of taps; vs plain {} and vs K2 "
+          "{} of {} values differ".format(ctx["which"], planes.shape[0], sched.n_tiles,
+                                          len(sched.classes), ctx["tap_bytes"] / 1e6, n_bad,
+                                          n_bad_k2, got.numel()))
+    return planes, tiles, sy, sx, got.numel(), err
+
+
+def phase_k2p(torch, device, grid_sample_ms):
+    """14. K2p on its path (the profiling tool at FDDB density), then
+    against its plain version and against K2 at FDDB density and at the
+    VGA geometry, with its two-tap violation count. ``grid_sample_ms`` is
+    phase 7's yardstick on the same windows of the same frames. Returns
+    K2p's launches on the path and its kernel-line numbers."""
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import (
         windows_sched,
         windows_sched_cuda,
         windows_sched_precomp_cuda as k2p_mod,
@@ -934,16 +968,18 @@ def phase_k2p(torch, device):
 
     tool = _load_tool("profile_torch_sched_precomp")
     _reset_launches()
+    k2p_mod.VIOLATIONS.clear()
     result = tool.profile("fddb", DENSE_FRAMES, device)
     launches = k2p_mod.LAUNCHES
-    assert launches >= 1, "K2p was launched {} times on its path".format(launches)
-    assert result["mismatches"] == 0, result["mismatches"]
+    assert launches == result["calls"], (
+        "K2p was launched {} times in {} calls on its path".format(launches, result["calls"]))
+    assert result["mismatches"] == 0 and result["violations"] == 0, result
     ctx = result["ctx"]
     sched, taps = ctx["sched"], ctx["taps"]
     assert ctx["plan"].n_windows == DENSE_WINDOWS
-    _, tiles, _ = sched.device_tables(device)
-    planes = windows.to_planes_bf16(ctx["frames"])
-    sy, sx, _ = windows_sched.scheduled_positions(ctx["boxes"], sched, device)
+    planes, tiles, sy, sx, n_values, err = _k2p_hold(torch, k2p_mod, ctx)
+    vga = tool.setup("vga", device, DENSE_FRAMES)
+    vga_planes, vga_tiles = _k2p_hold(torch, k2p_mod, vga)[:2]
 
     def kernel():
         return k2p_mod.resample_sched_precomp_cuda(planes, taps, tiles, sched)
@@ -951,38 +987,34 @@ def phase_k2p(torch, device):
     def plain():
         return windows_sched.resample_sched_precomp_plain(planes, taps, tiles, sched)
 
-    got = kernel()
-    ref = plain()
-    k2 = windows_sched_cuda.resample_sched_cuda(planes, sy, sx, tiles, sched.tile)
-    torch.cuda.synchronize()
-    n_bad = int((got != ref).sum())
-    n_bad_k2 = int((got != k2).sum())
-    err = float((got.float() - ref.float()).abs().max())
-    assert got.shape == ref.shape == k2.shape, (got.shape, ref.shape, k2.shape)
-    assert n_bad == 0 and n_bad_k2 == 0, ("K2p", n_bad, n_bad_k2)
-    n_values = got.numel()
-    del ref, k2
     ms = _median_ms(kernel, torch)
     k2_ms = _median_ms(
         lambda: windows_sched_cuda.resample_sched_cuda(planes, sy, sx, tiles, sched.tile), torch
     )
+    vga_ms = _median_ms(lambda: k2p_mod.resample_sched_precomp_cuda(
+        vga_planes, vga["taps"], vga_tiles, vga["sched"]), torch)
     pms = _median_ms(plain, torch, warmup=1, iters=3, reps=1)
+    violations = k2p_mod.violation_count()
+    assert violations == 0, ("K2p two-tap violations", violations)
     tap_values = sum(m.numel() for pair in taps for m in pair)
     n_bytes = (ctx["tap_bytes"] + planes.numel() * planes.element_size()
-               + tiles.numel() * tiles.element_size() + n_values * got.element_size())
+               + tiles.numel() * tiles.element_size() + n_values * 2)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     # per output value K1's arithmetic; per tap value one comparison
     ops_ms = (n_values * OPS_PER_VALUE + tap_values) / F32_OPS_PER_S * 1e3
     bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    smem, _, stage = k2p_mod.launch_geometry(sched.tile, 12, 12, planes.shape[1])
     print("K2p {} frames {}x{} wsf {}: tap matrices {:.1f} MB built in {:.3f} s; {} launches "
-          "on the tool's path; vs plain {} and vs K2 {} of {} values differ; kernel {:.4f} ms, "
-          "K2 {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms ({}; bytes {:.1f} MB)".format(
+          "in {} calls on the tool's path; kernel {:.4f} ms ({:.1f} MB/s of taps), bound "
+          "{:.4f} ms ({}; bytes {:.1f} MB; {:.1%} reached), grid_sample {:.4f} ms, K2 {:.4f} "
+          "ms, plain {:.4f} ms; VGA ({:.1f} MB of taps) {:.4f} ms; {} B shared a block, ring "
+          "{} x {} B; {} two-tap violations".format(
               DENSE_FRAMES, DENSE_HW[0], DENSE_HW[1], DENSE_WSF, ctx["tap_bytes"] / 1e6,
-              ctx["build_s"], launches, n_bad, n_bad_k2, n_values, ms, k2_ms, pms, bound_ms,
-              bound_by, n_bytes / 1e6))
-    del got
+              ctx["build_s"], launches, result["calls"], ms, ctx["tap_bytes"] / ms / 1e3,
+              bound_ms, bound_by, n_bytes / 1e6, bound_ms / ms, grid_sample_ms, k2_ms, pms,
+              vga["tap_bytes"] / 1e6, vga_ms, smem, k2p_mod.STAGES, stage, violations))
     return launches, {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bound_ms,
-                      "bound_by": bound_by}
+                      "bound_by": bound_by, "library_ms": grid_sample_ms}
 
 
 # a third positives, as in a face corpus with more backgrounds than faces
@@ -1261,8 +1293,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 14. K2p, the profiling tool's path ----------------------------------
-    k2p_launches, k2p = phase_k2p(torch, device)
-    k2p["library_ms"] = k2["library_ms"]  # the same windows of the same frames
+    # K2p's yardstick: phase 7's, on the same windows of the same frames
+    k2p_launches, k2p = phase_k2p(torch, device, k2["library_ms"])
     torch.cuda.empty_cache()
 
     # ---- 15-17. training -----------------------------------------------------

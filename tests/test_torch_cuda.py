@@ -401,28 +401,60 @@ def test_k1_edge_cases(card, case):
     assert torch.equal(got.cpu(), ref)
 
 
-def test_k2p_matches_plain_and_k2(card):
-    """K2p on a 6-class schedule with 512-wide cells and a ragged edge:
-    equal to its plain version and to K2, bit for bit."""
-    from rapidobjectdetectionusingcascadedcnns_torch.ops import windows_sched_precomp_cuda
-
-    img_h, img_w = 200, 300
-    plan = pyramid.build_plan(img_h, img_w, 12, 12, 0.075, 1.25)
+def _k2p_case(card, img_h, img_w, wsf, n_frames):
+    """(images, boxes, sched, taps, tiles, planes) of a K2p geometry on the
+    card, frames from seed 4."""
+    plan = pyramid.build_plan(img_h, img_w, 12, 12, 0.075, wsf)
     boxes = torch.as_tensor(pyramid.window_table(plan)["boxes_float"], device=card).float()
     sched = windows_sched.build_schedule(boxes.cpu().numpy(), img_h, img_w, 12, 12)
     rng = np.random.RandomState(4)
-    images = torch.as_tensor(rng.randint(0, 256, (3, img_h, img_w, 3)).astype(np.float32),
+    images = torch.as_tensor(rng.randint(0, 256, (n_frames, img_h, img_w, 3)).astype(np.float32),
                              device=card)
     taps = windows_sched.precompute_tap_matrices(sched, boxes)
     _, tiles, _ = sched.device_tables(card)
-    planes = windows.to_planes_bf16(images)
-    before = windows_sched_precomp_cuda.LAUNCHES
-    got = windows_sched_precomp_cuda.resample_sched_precomp_cuda(planes, taps, tiles, sched)
-    assert windows_sched_precomp_cuda.LAUNCHES == before + len(sched.classes)
+    return images, boxes, sched, taps, tiles, windows.to_planes_bf16(images)
+
+
+@pytest.mark.parametrize("geometry", [(200, 300, 1.25, 3), (480, 640, 1.1, 2)])
+def test_k2p_matches_plain_and_k2(card, geometry):
+    """K2p in one launch over a 6-class schedule with 512-wide cells and a
+    ragged edge, and over the VGA schedule's 8 classes with 768-wide cells:
+    equal to its plain version and to K2, bit for bit, with no nonzero tap
+    besides a row's or column's two."""
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import windows_sched_precomp_cuda as k2p
+
+    images, boxes, sched, taps, tiles, planes = _k2p_case(card, *geometry)
+    k2p.VIOLATIONS.clear()
+    before = k2p.LAUNCHES
+    got = k2p.resample_sched_precomp_cuda(planes, taps, tiles, sched)
+    assert k2p.LAUNCHES == before + 1
     ref = windows_sched.resample_sched_precomp_plain(planes, taps, tiles, sched)
     k2 = windows_sched.extract_scheduled(images, boxes, sched)
     torch.cuda.synchronize()
     assert torch.equal(got, ref) and torch.equal(got, k2)
+    assert k2p.violation_count() == 0
+
+
+def test_k2p_counts_a_third_nonzero_tap(card):
+    """A third nonzero planted in one RY row, two past the row's second
+    tap: the kernel keeps the row's first two taps and counts the third
+    as one violation."""
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import windows_sched_precomp_cuda as k2p
+
+    _, _, sched, taps, tiles, planes = _k2p_case(card, 200, 300, 1.25, 1)
+    ry, rx = taps[0]
+    nz = (ry != 0).int()
+    inside = nz[:, : ry.shape[1] - 3].sum(dim=1)
+    row = int(torch.nonzero((inside == nz.sum(dim=1)) & (inside > 0))[0])
+    lo = int(nz[row].argmax())
+    planted = ry.clone()
+    planted[row, lo + 3] = 0.5
+    k2p.VIOLATIONS.clear()
+    k2p.resample_sched_precomp_cuda(planes, [(planted, rx)] + taps[1:], tiles, sched)
+    assert k2p.violation_count() == 1
+    k2p.VIOLATIONS.clear()
+    k2p.resample_sched_precomp_cuda(planes, taps, tiles, sched)
+    assert k2p.violation_count() == 0
 
 
 def test_train_step_on_card_matches_cpu(card):

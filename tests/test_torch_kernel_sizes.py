@@ -1,7 +1,7 @@
 """Sizes the port's kernels ask of the card, computed on the host: K3's
 workspace grows with B * N (no adjacency is stored), the launch geometries
-of K1, K2 and K4 fit a Hopper block's shared memory at the cascade's window
-sizes, and K2's staged support covers all but a few tiles of an
+of K1, K2, K2p and K4 fit a Hopper block's shared memory at the cascade's
+window sizes, and K2's staged support covers all but a few tiles of an
 FDDB-density schedule."""
 
 import numpy as np
@@ -15,6 +15,7 @@ from rapidobjectdetectionusingcascadedcnns_torch.ops import (
     windows_dyn_cuda,
     windows_sched,
     windows_sched_cuda,
+    windows_sched_precomp_cuda,
 )
 
 BLOCK_LIMIT = 227 * 1024  # dynamic shared memory one block may have on Hopper
@@ -111,3 +112,25 @@ def test_k2_staging_fits_fddb_density():
             taps = windows_sched._bounded_taps(s, lo, size, bound)
             used.append(len(set(torch.cat([g[w > 0] for g, w in taps]).tolist())))
         assert sizes[t] == used[0] * used[1] * 3 * 2, t
+
+
+def test_k2p_launch_geometry_fits_shared_memory():
+    """K2p's block is K2's with the ring's barriers and its violation
+    count (56 bytes more at 3 ring stages): within 227 KB at FDDB density
+    (450x450, scale factor 1.005) and at VGA (480x640, 1.1), with two
+    blocks an SM at FDDB density. Its ring of 3 stages of 31,056 bytes
+    fills the output tile and the 64 KB staging budget, and a stage holds
+    whole RY rows and RX rows of every cell class."""
+    for h, w, wsf in ((450, 450, 1.005), (480, 640, 1.1)):
+        sched = windows_sched.schedule_for_plan(pyramid.build_plan(h, w, 12, 12, 0.075, wsf), 12, 12)
+        smem, budget, stage = windows_sched_precomp_cuda.launch_geometry(sched.tile, 12, 12, 3)
+        k2_smem, k2_budget = windows_sched_cuda.launch_geometry(sched.tile, 12, 12, 3)
+        assert (smem, budget) == (k2_smem + 56, k2_budget) and smem <= BLOCK_LIMIT
+        ring = 2 * sched.tile * 12 * 12 * 3 + budget
+        assert stage == 31056 and stage % 16 == 0 and budget == 65536
+        assert ring - 16 * 3 < windows_sched_precomp_cuda.STAGES * stage <= ring
+        for cls in sched.classes:
+            assert 2 * max(cls.cell_r, sched.tile * 12) <= stage and cls.cell_r % 8 == 0
+            assert (2 * sched.tile * 12) % 16 == 0  # an RX row is a bulk copy
+        if h == 450:
+            assert 2 * (smem + 1024) <= SM_LIMIT

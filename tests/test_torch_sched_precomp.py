@@ -9,6 +9,7 @@ held against the tool's own ``precompute_weights``, plain jnp, jitted.
 All comparisons are exact.
 """
 
+import ctypes
 import functools
 import importlib.util
 import os
@@ -34,6 +35,9 @@ PLAN = (200, 300, 1.25)
 # 2,084 windows in 2 classes: the JAX kernel in interpret mode takes about
 # 2 s per class
 PLAN_JAX = (128, 256, 1.15)
+# 189 tiles in 8 classes with 768-wide cells; 93.1 MB of taps (the FDDB
+# density's 1.6 GB stay off the CPU)
+PLAN_VGA = (480, 640, 1.1)
 
 
 def _load_jax_tool():
@@ -126,3 +130,76 @@ def test_wrapper_refuses_cpu_tensors(geometry):
     assert windows_sched_precomp_cuda.LAUNCHES == 0
     with pytest.raises(ValueError, match="schedule built for"):
         tsched.extract_scheduled_precomp(torch.zeros((1, 64, 64, 3)), taps, sched)
+
+
+def _bf16_bits(t):
+    return t.contiguous().view(torch.int16).numpy().view(np.uint16)
+
+
+def _read(address, shape, strides):
+    """uint16 values of host memory at ``address``, as the kernel's
+    addresses reach them (strides in bytes)."""
+    extent = sum((n - 1) * st for n, st in zip(shape, strides)) // 2 + 1
+    flat = np.frombuffer((ctypes.c_uint16 * extent).from_address(address), np.uint16)
+    return np.lib.stride_tricks.as_strided(flat, shape, strides)
+
+
+def _block_operands(table, block, n_rows, n_cols):
+    """What block ``block`` of K2p's launch reads, by the kernel's rule
+    (csrc/sched_precomp.cu): its class is the last row whose first block
+    is at most ``block``; it takes the tile ``tile0 + local``, the RY block
+    ``n_rows`` rows of cell_r bf16 values on from ``ry + local * n_rows *
+    cell_r`` values, and the RX rows of ``n_cols`` values from ``rx +
+    local * n_cols`` values at RX's row stride."""
+    k = int(np.searchsorted(table[:, 5], block, side="right")) - 1
+    ry, rx, rx_stride, tile0, _, block0, cell_r, cell_c = (int(v) for v in table[k])
+    local = block - block0
+    return {"tile": tile0 + local, "ry": ry + 2 * local * n_rows * cell_r,
+            "rx": rx + 2 * local * n_cols, "rx_stride_bytes": 2 * rx_stride,
+            "cell_r": cell_r, "cell_c": cell_c}
+
+
+def test_class_table_covers_every_tile_largest_first():
+    """At the VGA geometry K2p's one launch numbers its blocks through the
+    classes by tap bytes a tile, largest first: every tile exactly once,
+    and each block's RY and RX addresses reach the values of slicing its
+    class's matrices at the tile, with the tile table's cell."""
+    _, sched, _, taps = _geometry(PLAN_VGA)
+    n_rows, n_cols = sched.tile * 12, sched.tile * 12
+    table = windows_sched_precomp_cuda.class_table(sched, taps)
+    per_tile = n_rows * table[:, 6] + table[:, 7] * n_cols
+    assert len(table) == len(sched.classes) == 8 and (np.diff(per_tile) <= 0).all()
+    assert table[0, 7] == 768 and (table[:, 5] == np.cumsum(table[:, 4]) - table[:, 4]).all()
+    cell_of = sched.tile_table()
+    seen = []
+    for block in range(sched.n_tiles):
+        op = _block_operands(table, block, n_rows, n_cols)
+        t = op["tile"]
+        seen.append(t)
+        k = next(i for i, c in enumerate(sched.classes) if c.sel[0] <= t <= c.sel[-1])
+        cls, (ry, rx) = sched.classes[k], taps[k]
+        assert (op["cell_r"], op["cell_c"]) == (cls.cell_r, cls.cell_c) == tuple(cell_of[t, 2:])
+        i = t - int(cls.sel[0])
+        np.testing.assert_array_equal(
+            _read(op["ry"], (n_rows, cls.cell_r), (2 * cls.cell_r, 2)),
+            _bf16_bits(ry[i * n_rows : (i + 1) * n_rows]))
+        np.testing.assert_array_equal(
+            _read(op["rx"], (cls.cell_c, n_cols), (op["rx_stride_bytes"], 2)),
+            _bf16_bits(rx[:, i * n_cols : (i + 1) * n_cols]))
+    assert sorted(seen) == list(range(sched.n_tiles))
+
+
+def test_tap_matrices_have_two_adjacent_nonzeros():
+    """K2p keeps a row's (column's) first nonzero tap and the one after it
+    and counts any other: the matrices of ``precompute_tap_matrices`` never
+    have another. At the 200x300 geometry and at VGA every RY row and RX
+    column has one or two nonzeros, and two are adjacent."""
+    for plan_args in (PLAN, PLAN_VGA):
+        _, _, _, taps = _geometry(plan_args)
+        for nz in [m for ry, rx in taps for m in (ry != 0, (rx != 0).t())]:
+            count = nz.sum(dim=1)
+            first = nz.int().argmax(dim=1)
+            assert int(count.min()) >= 1 and int(count.max()) <= 2
+            two = count == 2
+            after = nz[two].gather(1, (first[two] + 1).clamp(max=nz.shape[1] - 1)[:, None])
+            assert bool(after.all())

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time kernels K1, K2, K3 and K4 of two checkouts of the PyTorch port on
-one CUDA card, in turns, at the shapes ``chip_smoke.py`` uses.
+"""Time kernels K1, K2, K3, K4 and K2p of two checkouts of the PyTorch port
+on one CUDA card, in turns, at the shapes ``chip_smoke.py`` uses.
 
     python3 tools/compare_torch_kernels.py OTHER_DIR
 
@@ -24,7 +24,11 @@ samples, each 10 calls back to back between two CUDA events):
     (N = 4,224), with random weights from seed 0;
   * K4 (``windows_dyn_cuda.resample_rowbound_cuda``): the same 4 frames
     with 16,512 plan boxes at 24 px and 4,224 at 48 px drawn as phase 8 of
-    ``chip_smoke.py`` draws them, laid out by ``windows_dyn.small_class``.
+    ``chip_smoke.py`` draws them, laid out by ``windows_dyn.small_class``;
+  * K2p (``windows_sched_precomp_cuda.resample_sched_precomp_cuda``): K2's
+    frames and schedule with the 1,617.8 MB of tap matrices of
+    ``windows_sched.precompute_tap_matrices``, as phase 14 of
+    ``chip_smoke.py``.
 
 Prints one line per process and a summary with the card's name and power
 limit; the numbers also go to ``chiprun_out/compare_kernels.json``.
@@ -48,10 +52,10 @@ from rapidobjectdetectionusingcascadedcnns_torch.data import synthetic
 from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
 from rapidobjectdetectionusingcascadedcnns_torch.ops import (
     _build, nms_cuda, pyramid, windows, windows_cuda, windows_dyn, windows_dyn_cuda, windows_sched,
-    windows_sched_cuda)
+    windows_sched_cuda, windows_sched_precomp_cuda)
 from rapidobjectdetectionusingcascadedcnns_torch.ops.color import rgb_to_yuv420, yuv420_to_rgb
 
-_build.build(["resample", "sched", "cluster", "rowbound"])
+_build.build(["resample", "sched", "cluster", "rowbound", "sched_precomp"])
 dev = torch.device("cuda")
 out = {}
 
@@ -96,6 +100,16 @@ def k2(images, plan):
     out["K2 dense {} frames x {} slots at 12 px".format(planes.shape[0], sched.n_slots)] = median_ms(
         lambda: windows_sched_cuda.resample_sched_cuda(planes, sy, sx, tiles, sched.tile))
 
+def k2p(images, plan):
+    sched = windows_sched.schedule_for_plan(plan, 12, 12)
+    boxes = torch.as_tensor(pyramid.window_table(plan)["boxes_float"], device=dev)
+    taps = windows_sched.precompute_tap_matrices(sched, boxes)
+    tiles = sched.device_tables(dev)[1]
+    planes = windows.to_planes_bf16(images)
+    out["K2p dense {} frames x {} slots, {:.1f} MB of taps".format(
+        planes.shape[0], sched.n_slots, windows_sched.tap_bytes(taps) / 1e6)] = median_ms(
+        lambda: windows_sched_precomp_cuda.resample_sched_precomp_cuda(planes, taps, tiles, sched))
+
 def k4(images, plan):
     coords = torch.as_tensor(pyramid.window_table(plan)["coords_norm"]).float()
     gen = torch.Generator().manual_seed(7)
@@ -128,6 +142,7 @@ k3("VGA", det, vga, [640, 256], True, (480, 640))
 cf.set("window_scale_factor", 1.005)
 k3("dense", cascade.CascadeDetector(model), dense, [16512, 4224], False, (450, 450))
 k4(dense_images, plan)
+k2p(dense_images, plan)
 print("RESULT " + json.dumps(out))
 '''
 

@@ -12,8 +12,10 @@ in device memory. Both give the same u8-lattice windows.
 
 For the chosen geometry it prints the windows, tiles and cell classes, the
 tap matrices' size and build time, the mismatches of K2p against K2 on the
-same frames, K2's and K2p's milliseconds per frame from CUDA events, and
-the card's name and power limit from nvidia-smi.
+same frames and K2p's two-tap violations (nonzero taps besides a row's or
+column's two), K2's and K2p's milliseconds per frame from CUDA events, the
+rate at which K2p reads the taps, and the card's name and power limit from
+nvidia-smi.
 
 Run from the repository root on a machine with a card:
 
@@ -96,10 +98,12 @@ def setup(which: str, device, n_frames: int, seed: int = 0) -> dict:
 
 def profile(which: str = "fddb", n_frames: int = 4, device=None, iters: int = 10) -> dict:
     """Build the taps, hold K2p against K2 on the same frames and time both
-    with CUDA events; prints a report and returns its numbers."""
+    with CUDA events; prints a report and returns its numbers, with the
+    number of K2p calls made (``calls``)."""
     import torch
 
     from rapidobjectdetectionusingcascadedcnns_torch.ops import windows_sched
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import windows_sched_precomp_cuda as k2p_mod
     from rapidobjectdetectionusingcascadedcnns_torch.utils.device import resolve_device
 
     device = resolve_device(device)
@@ -119,22 +123,27 @@ def profile(which: str = "fddb", n_frames: int = 4, device=None, iters: int = 10
     def k2():
         return windows_sched.extract_scheduled(frames, boxes, sched)
 
+    k2p_mod.VIOLATIONS.clear()
     got, ref = k2p(), k2()
     torch.cuda.synchronize()
     mismatches = int((got != ref).sum())
-    print("K2p vs K2 on {} frames: {} of {} values differ".format(
-        n_frames, mismatches, ref.numel()))
+    violations = k2p_mod.violation_count()
+    print("K2p vs K2 on {} frames: {} of {} values differ; {} two-tap violations".format(
+        n_frames, mismatches, ref.numel(), violations))
     del got, ref
-    k2_ms = event_ms(k2, torch, iters=iters)
-    k2p_ms = event_ms(k2p, torch, iters=iters)
+    warmup = 2
+    k2_ms = event_ms(k2, torch, warmup=warmup, iters=iters)
+    k2p_ms = event_ms(k2p, torch, warmup=warmup, iters=iters)
     card = nvidia_smi()
     print("K2 (taps built in the kernel): {:.4f} ms/frame ({:.4f} ms for {} frames)".format(
         k2_ms / n_frames, k2_ms, n_frames))
-    print("K2p (precomputed taps)       : {:.4f} ms/frame ({:.4f} ms for {} frames)".format(
-        k2p_ms / n_frames, k2p_ms, n_frames))
+    print("K2p (precomputed taps)       : {:.4f} ms/frame ({:.4f} ms for {} frames); taps "
+          "read at {:.1f} GB/s".format(k2p_ms / n_frames, k2p_ms, n_frames,
+                                       ctx["tap_bytes"] / k2p_ms / 1e6))
     print("card: {}".format(card))
     return {
-        "ctx": ctx, "mismatches": mismatches, "k2_ms": k2_ms, "k2p_ms": k2p_ms, "card": card,
+        "ctx": ctx, "mismatches": mismatches, "violations": violations, "k2_ms": k2_ms,
+        "k2p_ms": k2p_ms, "card": card, "calls": 1 + warmup + iters,
     }
 
 
@@ -144,7 +153,7 @@ def main() -> int:
     parser.add_argument("--frames", type=int, default=4)
     args = parser.parse_args()
     result = profile(args.which, args.frames)
-    return 0 if result["mismatches"] == 0 else 1
+    return 0 if result["mismatches"] == 0 and result["violations"] == 0 else 1
 
 
 if __name__ == "__main__":
