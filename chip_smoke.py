@@ -90,7 +90,24 @@ Phases (each checked; any failure exits non-zero):
      K1 launches (counted around the in-memory run) and the batch wall;
   17. card vs CPU for training: a tiny f32 cascade (conv [8], fc1 32, TF32
      off, dropout 1, augmentation off) trained 2 epochs on both; losses
-     within 1e-4 relative, parameters within 1e-4 + 1e-3 relative.
+     within 1e-4 relative, parameters within 1e-4 + 1e-3 relative;
+  18. the flagship recipe (tools/train_torch_flagship.py: conv [32, 32],
+     fc1 512, max_beta 2, min_beta 1, batch 512, positional augmentation,
+     the mixed corpus with the committed hard examples x4), only its corpus
+     (5,000/40,000 -> 2,000/6,000) and epochs (20 -> 12) cut: trained on
+     the card (corpus seconds, s/step, loss first -> last falling on every
+     stage, validation); its recall, false positives and survivor maxima on
+     the 100 benchmark scenes at threshold 0.3 and min_neighbors 0, stage 0
+     keeping under half of the 5,061 windows, and the capacities
+     ``capacity_schedule_from_quality`` gives; the 16 VGA frames at those
+     capacities in bf16 (wall, frames/s, re-dispatches, K1 launches, host
+     NMS, ``native.available()``), K1 at those shapes against its plain
+     version; bf16 card vs CPU on 4 frames, with cuBLAS's reduced-precision
+     bf16 reduction on and off (flips at most 2% of the survivors as
+     ``set_numerics`` leaves it); the device NMS tail equal to host NMS, K3
+     at the flagship's last capacity; the dense 4-frame batch at the
+     default capacities and with ``dyn_reextract="on"`` (walls,
+     re-dispatches, K1/K2/K4 launches, host NMS and decoded rows).
 
 Kernels against plain versions: at most 1e-4 of the values may differ, each
 by at most 1 (bit-exact is expected); K3's and K2p's outputs must be equal.
@@ -710,9 +727,11 @@ def _k3_call_counts(torch, rects, alive):
     return kernels, syncs
 
 
-def _k3_case(torch, rects, alive, label):
+def _k3_case(torch, rects, alive, label, call_counts=True):
     """K3 against its plain version at eps 0.2 and 0.3 (every output
-    equal), then its times, bound, launches and synchronisations."""
+    equal), then its times, bound and, with ``call_counts``, its launches
+    and synchronisations in one call (phase 11 holds those; a profiler
+    session late in the process has been seen to record no kernel)."""
     from rapidobjectdetectionusingcascadedcnns_torch.ops import nms, nms_cuda
 
     b, n = alive.shape
@@ -732,8 +751,14 @@ def _k3_case(torch, rects, alive, label):
                   int(((got[3] == torch.arange(n, device=rects.device)) & alive
                        & (got[1] > 1)).sum()), b))
         del got, ref
-    kernels, syncs = _k3_call_counts(torch, rects, alive)
-    assert len(kernels) <= 4 and syncs <= 1, (kernels, syncs)
+    counts = "launches and synchronisations per call not counted here (phase 11)"
+    if call_counts:
+        kernels, syncs = _k3_call_counts(torch, rects, alive)
+        assert len(kernels) <= 4 and syncs <= 1, (kernels, syncs)
+        counts = ("{} kernel launches per call, device us {} (sum {:.1f}), and {} host "
+                  "synchronisation(s) per call".format(
+                      len(kernels), [(name, round(us, 1)) for name, us in kernels],
+                      sum(us for _, us in kernels), syncs))
     ms = _median_ms(lambda: nms_cuda.group_rectangles_cuda(rects, alive, 1, 0.2), torch)
     pms = _median_ms(lambda: nms.group_rectangles_device_plain(rects, alive, 1, 0.2), torch,
                      warmup=1, iters=3, reps=1)
@@ -741,11 +766,9 @@ def _k3_case(torch, rects, alive, label):
     bytes_ms = b * n * K3_BYTES_PER_ROW / HBM_BYTES_PER_S * 1e3
     bound_ms, bound_by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
     print("K3 {} {} frames x N={}: kernel {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms ({}; "
-          "bytes {:.6f} ms; {:.1%} of it); {} kernel launches per call, device us {} (sum "
-          "{:.1f}), and {} host synchronisation(s) per call; workspace {} B".format(
-              label, b, n, ms, pms, bound_ms, bound_by, bytes_ms, bound_ms / ms, len(kernels),
-              [(name, round(us, 1)) for name, us in kernels], sum(us for _, us in kernels),
-              syncs, nms_cuda.workspace_bytes(b, n)))
+          "bytes {:.6f} ms; {:.1%} of it); {}; workspace {} B".format(
+              label, b, n, ms, pms, bound_ms, bound_by, bytes_ms, bound_ms / ms, counts,
+              nms_cuda.workspace_bytes(b, n)))
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bound_ms,
             "bound_by": bound_by}
@@ -1017,57 +1040,18 @@ def phase_k2p(torch, device, grid_sample_ms):
                       "bound_by": bound_by, "library_ms": grid_sample_ms}
 
 
-# a third positives, as in a face corpus with more backgrounds than faces
-# (with more positives than negatives the trainer drops the F-beta loss);
-# 9,600 training samples are 8 steps of 1200 per epoch
-TRAIN_POS, TRAIN_NEG = 4000, 8000
-TRAIN_EPOCHS = 7  # cut from the default 50: 56 steps per stage
-
-
-def phase_training(torch, device, kind, card):
-    """15. The boosted cascade trained on the card at full width. Returns
-    the trained model."""
+def _report_stages(torch, device, trainer, min_steps):
+    """Per stage of a trained ``CascadeTrainer``: steps, loss first and
+    last (which must fall and stay finite), s/step over 10 synchronised
+    updates, validation results and re-weighting error."""
     import math
 
     from rapidobjectdetectionusingcascadedcnns_torch import config as cf
-    from rapidobjectdetectionusingcascadedcnns_torch.train import cascade_trainer as ct
     from rapidobjectdetectionusingcascadedcnns_torch.train import train_step
-    from rapidobjectdetectionusingcascadedcnns_torch.train.trainer import (
-        ConstantPredictionException,
-    )
-    from rapidobjectdetectionusingcascadedcnns_torch.utils import log
 
-    for key, want in (("cascade_n_nets", 3), ("img_width", 48), ("conv_filter_sizes", [32]),
-                      ("fc1_size", 512), ("compute_dtype", "bfloat16"), ("batch_size", 1200),
-                      ("optimizer", cf.OPTIMIZER_MOMENTUM), ("dropout_rate", 0.5),
-                      ("data_augmentation_online", True),
-                      ("cascade_resampling_method", cf.RESAMPLING_ADABOOST_LIKE),
-                      ("reuse_bottlenecks", True)):
-        assert cf.get(key) == want, (key, cf.get(key), want)
-    default_epochs = cf.get("epochs_total")
-    cf.set("epochs_total", TRAIN_EPOCHS)
-    print("training: epochs_total cut from {} to {}; everything else at its default".format(
-        default_epochs, TRAIN_EPOCHS))
-    t0 = time.perf_counter()
-    provider = ct.SyntheticProvider(TRAIN_POS, TRAIN_NEG, [12, 24, 48], seed=0)
-    data_s = time.perf_counter() - t0
-    trainer = ct.CascadeTrainer(provider, seed=0, device=device)
-    log.set_echo(False)
-    try:
-        t0 = time.perf_counter()
-        model = trainer.train()
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-    except ConstantPredictionException as exc:
-        raise AssertionError("training raised ConstantPredictionException: {}".format(exc))
-    finally:
-        log.set_echo(True)
-    print("training: corpus of {} samples made in {:.2f} s; 3 stages trained in {:.2f} s "
-          "(evaluations and snapshots included) on {} [{}]".format(
-              TRAIN_POS + TRAIN_NEG, data_s, train_s, kind, card))
     for i, st in enumerate(trainer.stage_trainers):
         losses = st.losses()
-        assert len(losses) >= 50, (i, len(losses))
+        assert len(losses) >= min_steps, (i, len(losses))
         assert all(math.isfinite(x) for x in losses), ("NaN loss", i)
         # s/step: ten more updates of this stage's trainer on one batch,
         # synchronized (the cascade already holds copies of the weights).
@@ -1101,6 +1085,54 @@ def phase_training(torch, device, kind, card):
                   val.get("recall", float("nan")), val.get("precision", float("nan")),
                   st.main_criteria, val.get(st.main_criteria, float("nan")), err))
         assert losses[-1] < losses[0], ("loss did not fall", i, losses[0], losses[-1])
+
+
+# a third positives, as in a face corpus with more backgrounds than faces
+# (with more positives than negatives the trainer drops the F-beta loss);
+# 9,600 training samples are 8 steps of 1200 per epoch
+TRAIN_POS, TRAIN_NEG = 4000, 8000
+TRAIN_EPOCHS = 7  # cut from the default 50: 56 steps per stage
+
+
+def phase_training(torch, device, kind, card):
+    """15. The boosted cascade trained on the card at full width. Returns
+    the trained model."""
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.train import cascade_trainer as ct
+    from rapidobjectdetectionusingcascadedcnns_torch.train.trainer import (
+        ConstantPredictionException,
+    )
+    from rapidobjectdetectionusingcascadedcnns_torch.utils import log
+
+    for key, want in (("cascade_n_nets", 3), ("img_width", 48), ("conv_filter_sizes", [32]),
+                      ("fc1_size", 512), ("compute_dtype", "bfloat16"), ("batch_size", 1200),
+                      ("optimizer", cf.OPTIMIZER_MOMENTUM), ("dropout_rate", 0.5),
+                      ("data_augmentation_online", True),
+                      ("cascade_resampling_method", cf.RESAMPLING_ADABOOST_LIKE),
+                      ("reuse_bottlenecks", True)):
+        assert cf.get(key) == want, (key, cf.get(key), want)
+    default_epochs = cf.get("epochs_total")
+    cf.set("epochs_total", TRAIN_EPOCHS)
+    print("training: epochs_total cut from {} to {}; everything else at its default".format(
+        default_epochs, TRAIN_EPOCHS))
+    t0 = time.perf_counter()
+    provider = ct.SyntheticProvider(TRAIN_POS, TRAIN_NEG, [12, 24, 48], seed=0)
+    data_s = time.perf_counter() - t0
+    trainer = ct.CascadeTrainer(provider, seed=0, device=device)
+    log.set_echo(False)
+    try:
+        t0 = time.perf_counter()
+        model = trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    except ConstantPredictionException as exc:
+        raise AssertionError("training raised ConstantPredictionException: {}".format(exc))
+    finally:
+        log.set_echo(True)
+    print("training: corpus of {} samples made in {:.2f} s; 3 stages trained in {:.2f} s "
+          "(evaluations and snapshots included) on {} [{}]".format(
+              TRAIN_POS + TRAIN_NEG, data_s, train_s, kind, card))
+    _report_stages(torch, device, trainer, min_steps=50)
     print("training: combined cascade on the test split {}".format(
         {k: round(v, 4) for k, v in trainer.combined_results["test"].items()}))
     cf.set("epochs_total", default_epochs)
@@ -1200,6 +1232,272 @@ def phase_train_card_vs_cpu(torch, device):
           "{:.3g}, max |param diff| {:.3g}".format(
               [len(t.losses()) for t in t_gpu.stage_trainers], loss_err, param_err))
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+# the recipe of tools/train_torch_flagship.py, cut in corpus size and epochs
+# only (the JAX sweep's 2,000/6,000 at 12 epochs kept 30% of the VGA
+# windows after stage 0)
+FLAG_POS, FLAG_NEG = 2000, 6000
+FLAG_EPOCHS = 12
+FLAG_SCENES = 100  # benchmark scenes for the survivor maxima, as the tool
+FLAG_THRESHOLD, FLAG_MIN_NEIGHBORS = 0.3, 0  # the JAX flagship's operating point
+FLAG_CPU_FRAMES = 4  # bf16 card vs CPU: the frames the CPU detects
+
+
+@contextlib.contextmanager
+def _host_nms_timer():
+    """Host NMS seconds and decoded rows: every packed row goes through
+    ``serve.postprocess_raw``. Yields {"s": seconds, "rows": calls}."""
+    from rapidobjectdetectionusingcascadedcnns_torch import serve
+
+    real = serve.postprocess_raw
+    acc = {"s": 0.0, "rows": 0}
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            acc["s"] += time.perf_counter() - t0
+            acc["rows"] += 1
+
+    serve.postprocess_raw = timed
+    try:
+        yield acc
+    finally:
+        serve.postprocess_raw = real
+
+
+def _flagship_train(torch, device, tool, kind, card):
+    """18a. The flagship recipe trained on the card; returns the model."""
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.train import cascade_trainer as ct
+    from rapidobjectdetectionusingcascadedcnns_torch.train.trainer import (
+        ConstantPredictionException,
+    )
+    from rapidobjectdetectionusingcascadedcnns_torch.utils import log
+
+    tool.flagship_config(cf)
+    recipe = _quietly(tool.apply_recorded_overrides, cf)
+    for key, want in (("cascade_n_nets", 3), ("img_width", 48), ("conv_filter_sizes", [32, 32]),
+                      ("fc1_size", 512), ("compute_dtype", "bfloat16"), ("max_beta", 2),
+                      ("min_beta", 1), ("batch_size", 512), ("data_augmentation_online", True),
+                      ("dao_crop_probability", 1.0), ("reuse_bottlenecks", True)):
+        assert cf.get(key) == want, (key, cf.get(key), want)
+    assert recipe["hard_negatives"] == recipe["hard_positives"] == 4, recipe
+    print("flagship: corpus cut from {}/{} to {}/{} faces/backgrounds; epochs_total cut from "
+          "{} to {}; architecture and recipe as recorded (conv {}, fc1 {}, max_beta {}, "
+          "min_beta {}, batch {}, positional augmentation, mixed corpus, hard examples "
+          "x{})".format(recipe["n_pos"], recipe["n_neg"], FLAG_POS, FLAG_NEG,
+                        cf.get("epochs_total"), FLAG_EPOCHS, cf.get("conv_filter_sizes"),
+                        cf.get("fc1_size"), cf.get("max_beta"), cf.get("min_beta"),
+                        cf.get("batch_size"), recipe["hard_negatives"]))
+    cf.set("epochs_total", FLAG_EPOCHS)
+    t0 = time.perf_counter()
+    provider = _quietly(tool.flagship_provider, FLAG_POS, FLAG_NEG, recipe["seed"], recipe)
+    corpus_s = time.perf_counter() - t0
+    labels = provider._labels
+    trainer = ct.CascadeTrainer(provider, seed=recipe["seed"], device=device)
+    log.set_echo(False)
+    try:
+        t0 = time.perf_counter()
+        model = trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    except ConstantPredictionException as exc:
+        raise AssertionError("training raised ConstantPredictionException: {}".format(exc))
+    finally:
+        log.set_echo(True)
+    print("flagship: corpus of {} samples ({} faces; {} mined windows appended) built in "
+          "{:.2f} s on the host; 3 stages trained in {:.2f} s (evaluations and snapshots "
+          "included) on {} [{}]".format(len(labels), int(labels.sum()),
+                                       len(labels) - FLAG_POS - FLAG_NEG, corpus_s, train_s,
+                                       kind, card))
+    _report_stages(torch, device, trainer, min_steps=100)
+    print("flagship: combined cascade on the test split {}".format(
+        {k: round(v, 4) for k, v in trainer.combined_results["test"].items()}))
+    return model
+
+
+def _flagship_vga(torch, model, caps, frames, kind, card):
+    """18c. The 16-frame VGA YUV420 batch at the flagship's capacities:
+    returns (detector, results, K1 launches)."""
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+
+    windows_cuda, windows_sched_cuda, windows_dyn_cuda, nms_cuda = _kernel_modules()
+    det = cascade.CascadeDetector(model, capacity_schedule=caps)
+    _quietly(det.detect_batch_yuv420, frames)  # warm-up
+    det.redispatches = 0
+    torch.cuda.synchronize()
+    _reset_launches()
+    with _host_nms_timer() as nms:
+        t0 = time.perf_counter()
+        results = _quietly(det.detect_batch_yuv420, frames)
+        counted_s = time.perf_counter() - t0
+    k1, redispatches = windows_cuda.LAUNCHES, det.redispatches
+    assert k1 >= 2, k1
+    assert windows_sched_cuda.LAUNCHES == windows_dyn_cuda.LAUNCHES == nms_cuda.LAUNCHES == 0
+    for r in results:
+        s = r.n_survivors_per_stage
+        assert r.n_windows == VGA_WINDOWS and len(s) == 3 and s[0] >= s[1] >= s[2] >= 0, s
+        assert r.boxes.ndim == 2 and r.boxes.shape[1] == 4 and bool((r.boxes == r.boxes).all())
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _quietly(det.detect_batch_yuv420, frames)
+        walls.append(time.perf_counter() - t0)
+    med = statistics.median(walls)
+    print("flagship VGA: survivors per stage per frame {}".format(
+        [r.n_survivors_per_stage for r in results]))
+    print("flagship VGA at capacities {} (bf16, threshold {}, min_neighbors {}): 16-frame batch "
+          "{:.4f} s median of {} (counted {:.4f} s) = {:.2f} frames/s; re-dispatches {}, K1 "
+          "launches {}; host NMS {:.4f} s over {} decoded rows in the counted batch, "
+          "native.available() {}; detections per frame {}; on {} [{}]".format(
+              caps, FLAG_THRESHOLD, FLAG_MIN_NEIGHBORS, med, [round(x, 4) for x in walls],
+              counted_s, N_FRAMES / med, redispatches, k1, nms["s"], nms["rows"], _native(),
+              [len(r.boxes) for r in results], kind, card))
+    return det, results, k1
+
+
+def _flagship_bf16_parity(torch, model, caps, frames):
+    """18d. bf16 card against CPU: the same model, capacities and settings;
+    flips at most 2% of the survivors, with cuBLAS's reduced-precision bf16
+    reduction as ``set_numerics`` leaves it (both settings printed)."""
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_bf16_reduced_precision_reduction
+    t0 = time.perf_counter()
+    cpu_det = cascade.CascadeDetector(model.to("cpu"), capacity_schedule=caps)
+    res_cpu = _quietly(cpu_det.detect_batch_yuv420, frames[:FLAG_CPU_FRAMES])
+    cpu_s = time.perf_counter() - t0
+    det = cascade.CascadeDetector(model, capacity_schedule=caps)
+    as_set = matmul.allow_bf16_reduced_precision_reduction  # what set_numerics leaves
+    counts = {}
+    for value in (True, False):
+        matmul.allow_bf16_reduced_precision_reduction = value
+        res = _quietly(det.detect_batch_yuv420, frames)
+        pairs = [_flips(a, b) for a, b in zip(res_cpu, res)]
+        per_frame = [len(f[0]) for f in pairs]
+        survivors = sum(len(f[2] | f[3]) for f in pairs)
+        conf_err = 0.0
+        for a, b in zip(res_cpu, res):
+            ca = dict(zip(a.raw_window_ids.tolist(), a.raw_confidences.tolist()))
+            cb = dict(zip(b.raw_window_ids.tolist(), b.raw_confidences.tolist()))
+            conf_err = max([conf_err] + [abs(ca[i] - cb[i]) for i in set(ca) & set(cb)])
+        counts[value] = (sum(per_frame), survivors)
+        print("flagship bf16 card vs cpu (allow_bf16_reduced_precision_reduction {}{}): flips "
+              "per frame {} = {} of {} survivors (allowed {:.1f}), max |conf diff| on common "
+              "{:.3g}; survivors per stage cpu {} gpu {}".format(
+                  value, ", as set_numerics leaves it" if value == as_set else "", per_frame,
+                  sum(per_frame), survivors, BORDERLINE_FRACTION * survivors, conf_err,
+                  [r.n_survivors_per_stage for r in res_cpu],
+                  [r.n_survivors_per_stage for r in res[:FLAG_CPU_FRAMES]]))
+    matmul.allow_bf16_reduced_precision_reduction = saved
+    print("flagship bf16 card vs cpu: the cpu detected {} of the {} frames (bf16 on the host is "
+          "slow) in {:.2f} s".format(FLAG_CPU_FRAMES, N_FRAMES, cpu_s))
+    flips, survivors = counts[as_set]
+    assert flips <= BORDERLINE_FRACTION * max(survivors, 1), counts
+
+
+def _flagship_tail(torch, model, caps, frames, host_results):
+    """18e. The VGA batch with the device NMS tail (K3 at the flagship's
+    last capacity): boxes equal to host NMS on every frame. Returns K3's
+    launches."""
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+
+    nms_cuda = _kernel_modules()[3]
+    cf.set("nms_on_device", True)
+    det = cascade.CascadeDetector(model, capacity_schedule=caps)
+    _quietly(det.detect_batch_yuv420, frames)  # warm-up
+    det.redispatches = 0
+    torch.cuda.synchronize()
+    _reset_launches()
+    results = _quietly(det.detect_batch_yuv420, frames)
+    k3, reruns = nms_cuda.LAUNCHES, det.redispatches
+    cf.set("nms_on_device", False)
+    assert k3 == 1 + reruns, (k3, reruns)
+    for r, h in zip(results, host_results):
+        assert r.raw_window_ids.tolist() == h.raw_window_ids.tolist()
+        assert _sorted_rows(r.boxes) == _sorted_rows(h.boxes), (len(r.boxes), len(h.boxes))
+        assert sorted(r.confidences.tolist()) == sorted(h.confidences.tolist())
+    print("flagship VGA tail: K3 launches {} (1 batch + {} re-runs) at N = {}; raw survivors, "
+          "boxes and confidences equal to host NMS on all {} frames".format(
+              k3, reruns, caps[-1], len(results)))
+    return k3
+
+
+def _flagship_dense(torch, model, dense, kind, card):
+    """18f. The dense 4-frame 450x450 batch at scale factor 1.005 with the
+    flagship, at the default capacities, then with ``dyn_reextract="on"``.
+    Returns the launches (K1, K2) of the first and K4's of the second."""
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+
+    cf.set("window_scale_factor", DENSE_WSF)
+    det = cascade.CascadeDetector(model)
+    runs = {}
+    for dyn, label in (("auto", "flagship, default caps"),
+                       ("on", "flagship, default caps, dyn_reextract on")):
+        cf.set("dyn_reextract", dyn)
+        with _host_nms_timer() as nms:
+            runs[dyn] = _dense_detect(torch, det, dense, label, kind, card)
+        print("dense path ({}): host NMS {:.4f} s per batch over {:.1f} decoded rows per "
+              "batch".format(label, nms["s"] / 3, nms["rows"] / 3))
+    cf.set("dyn_reextract", "auto")
+    cf.set("window_scale_factor", 1.1)
+    (base, (k1, k2, k4)), (dyn, (dk1, dk2, dk4)) = runs["auto"], runs["on"]
+    assert k2 >= 1 and k1 >= 2 and k4 == 0, (k1, k2, k4)
+    assert dk2 >= 1 and dk4 >= 1, (dk1, dk2, dk4)
+    flips = [_flips(a, b) for a, b in zip(base, dyn)]
+    print("flagship dense: K4 vs K1 re-extraction survivor flips per frame {}".format(
+        [len(f[0]) for f in flips]))
+    assert all(len(f[0]) <= f[1] for f in flips), [(len(f[0]), f[1]) for f in flips]
+    return k1, k2, dk4
+
+
+def phase_flagship(torch, device, frames, dense, kind, card):
+    """18. The flagship recipe trained on the card and driven through the
+    detection paths of K1-K4. Returns the launch counts and the kernel
+    measurements at the flagship's shapes."""
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+
+    tool = _load_tool("train_torch_flagship")
+    saved = cf.snapshot()
+    try:
+        model = _flagship_train(torch, device, tool, kind, card)
+        # 18b. survivor maxima and quality on the benchmark scenes
+        t0 = time.perf_counter()
+        quality = _quietly(tool.evaluate_on_scenes, model, FLAG_SCENES, 100, FLAG_THRESHOLD,
+                           True, FLAG_MIN_NEIGHBORS)
+        caps = tool.capacity_schedule_from_quality(quality)
+        print("flagship quality on {} benchmark scenes at threshold {} min_neighbors {}: recall "
+              "{}, {} false positives a scene, survivors mean {} max {} of {} windows -> "
+              "capacities {}; misses {} (grid-limited {}, stage-0-blind {}); {:.2f} s".format(
+                  FLAG_SCENES, FLAG_THRESHOLD, FLAG_MIN_NEIGHBORS, quality["recall"],
+                  quality["false_pos_per_scene"], quality["survivors_mean"],
+                  quality["survivors_max"], quality["n_windows"], caps, len(quality["misses"]),
+                  quality["misses_grid_limited"], quality["misses_stage0_blind"],
+                  time.perf_counter() - t0))
+        assert quality["n_windows"] == VGA_WINDOWS
+        assert quality["survivors_mean"][0] < VGA_WINDOWS / 2, (
+            "stage 0 does not discriminate", quality["survivors_mean"])
+        det, host_results, k1_launches = _flagship_vga(torch, model, caps, frames, kind, card)
+        k1 = phase_k1(torch, "flagship VGA", *vga_k1_inputs(torch, device, det, frames),
+                      {24: caps[0], 48: caps[1]})
+        _flagship_bf16_parity(torch, model, caps, frames)
+        k3_launches = _flagship_tail(torch, model, caps, frames, host_results)
+        k3 = _k3_case(torch, *_k3_inputs(torch, det, frames, caps), "flagship VGA",
+                      call_counts=False)
+        del det
+        torch.cuda.empty_cache()
+        k1_dense, k2_dense, k4_dense = _flagship_dense(torch, model, dense, kind, card)
+    finally:
+        cf.restore(saved)
+    return {"k1": (k1_launches, k1), "k3": (k3_launches, k3), "caps": caps,
+            "k1_dense": k1_dense, "k2_dense": k2_dense, "k4_dense": k4_dense}
 
 
 def _kernel_line(name, source, replaces, launches, m):
@@ -1306,6 +1604,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_card_vs_cpu(torch, device)
 
+    # ---- 18. the flagship recipe ---------------------------------------------
+    torch.cuda.empty_cache()
+    flagship = phase_flagship(torch, device, frames, dense, kind, card)
+    torch.cuda.empty_cache()
+
     loaded = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "rapidobjectdetectionusingcascadedcnns_tpu")
@@ -1328,6 +1631,16 @@ def main() -> int:
                      "sched_precomp.cu", "tools/profile_sched_precomp.py:62", k2p_launches, k2p),
         _kernel_line("K1 crop_and_resize (trained cascade, VGA path re-extraction)",
                      "resample.cu", "ops/windows_pallas.py:63", k1_trained_launches, k1_vga),
+        _kernel_line("K1 crop_and_resize (flagship, VGA path re-extraction at {})".format(
+            flagship["caps"]), "resample.cu", "ops/windows_pallas.py:63", *flagship["k1"]),
+        _kernel_line("K3 groupRectangles clustering (flagship, VGA device NMS tail, N={})".format(
+            flagship["caps"][-1]), "cluster.cu", "ops/nms_pallas.py:33", *flagship["k3"]),
+        _kernel_line("K1 crop_and_resize (flagship, dense path re-extraction)", "resample.cu",
+                     "ops/windows_pallas.py:63", flagship["k1_dense"], k1_dense),
+        _kernel_line("K2 scheduled stage-0 extraction (flagship, dense path)", "sched.cu",
+                     "ops/windows_sched.py:259", flagship["k2_dense"], k2),
+        _kernel_line("K4 row-bounded re-extraction (flagship, dense path, dyn_reextract)",
+                     "rowbound.cu", "ops/windows_dyn.py:83", flagship["k4_dense"], k4),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

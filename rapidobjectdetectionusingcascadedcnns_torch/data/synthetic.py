@@ -2,11 +2,12 @@
 
 The port's copy of the JAX package's ``data/synthetic.py``: the scene
 generator (``make_scene``) and the patch corpora the trainers learn from
-(``make_patch_dataset``, ``make_multiresolution_patch_dataset``). Same
-seeds, same pixels: skin-toned ellipses with darker eye/mouth blobs pasted
-on a low-frequency textured canvas, with ground-truth boxes, so training
-and detection run hermetically and reproducibly. The scene-sampled corpus
-(``source="scenes"``) is not ported yet (ROADMAP Queue A item 10b).
+(``make_patch_dataset``, ``make_multiresolution_patch_dataset``, and the
+scene-sampled ``make_scene_patch_dataset``,
+``make_multiresolution_scene_patch_dataset``). Same seeds, same pixels:
+skin-toned ellipses with darker eye/mouth blobs pasted on a low-frequency
+textured canvas, with ground-truth boxes, so training and detection run
+hermetically and reproducibly.
 """
 
 from __future__ import annotations
@@ -105,17 +106,11 @@ def make_patch_dataset(
     return images, labels
 
 
-def make_multiresolution_patch_dataset(
-    n_pos: int, n_neg: int, sizes: List[int], seed: int = 0
-) -> dict:
-    """The same samples rendered at several resolutions (cascade stages need
-    pixel-aligned datasets across resolutions, app/train_cascade_app.py:244-263).
-
-    Renders at max(sizes) once and area-downsamples, so sample i is the same
-    underlying scene at every resolution.
-    """
+def aligned_views(images_top: np.ndarray, sizes: List[int]) -> dict:
+    """``{size: images}`` for every size in ``sizes``: ``images_top`` (N, top,
+    top, 3) uint8 at the largest size, the others by an aligned block mean,
+    so sample i shows the same pixels at every resolution."""
     top = max(sizes)
-    images_top, labels = make_patch_dataset(n_pos, n_neg, top, seed)
     out = {top: images_top}
     for size in sizes:
         if size == top:
@@ -127,7 +122,20 @@ def make_multiresolution_patch_dataset(
             len(images_top), size, factor, size, factor, 3
         ).mean(axis=(2, 4))
         out[size] = np.clip(np.round(ds), 0, 255).astype(np.uint8)
-    return {"images": out, "labels": labels}
+    return out
+
+
+def make_multiresolution_patch_dataset(
+    n_pos: int, n_neg: int, sizes: List[int], seed: int = 0
+) -> dict:
+    """The same samples rendered at several resolutions (cascade stages need
+    pixel-aligned datasets across resolutions, app/train_cascade_app.py:244-263).
+
+    Renders at max(sizes) once and area-downsamples, so sample i is the same
+    underlying scene at every resolution.
+    """
+    images_top, labels = make_patch_dataset(n_pos, n_neg, max(sizes), seed)
+    return {"images": aligned_views(images_top, sizes), "labels": labels}
 
 
 @dataclass
@@ -175,3 +183,56 @@ def make_scene(
         image=canvas,
         boxes=np.asarray(boxes, dtype=np.int32).reshape(-1, 4),
     )
+
+
+def make_scene_patch_dataset(
+    n_pos: int, n_neg: int, size: int, seed: int = 0
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Patch corpus sampled from full SCENES via the offline-sampling flow
+    (the synthetic analog of the reference's run_sampling.py over
+    AFLW/ImageNet): positives are ground-truth face crops, negatives are
+    rejection-sampled background patches clear of any face (IoU <= 0.05,
+    at least 24 px, eight a scene, stopping at a scene's first deadlock).
+
+    Scene-sampled patches match the distribution pyramid windows see at
+    inference (canvas textures, varied crop scales), which is what makes a
+    stage-0 net reject background windows: plain :func:`make_patch_dataset`
+    textures are too unlike scene windows.
+    """
+    from ..ops import sampling as sampling_ops
+    from .image_io import resize_rgb
+
+    rng = np.random.RandomState(seed)
+    pos: List[np.ndarray] = []
+    neg: List[np.ndarray] = []
+    scene_seed = seed * 100003 + 17
+    while len(pos) < n_pos or len(neg) < n_neg:
+        scene = make_scene(240, 320, n_faces=3, seed=scene_seed, min_face=40, max_face=140)
+        scene_seed += 1
+        if len(pos) < n_pos:
+            for box in scene.boxes:
+                x0, y0, x1, y1 = [int(v) for v in box]
+                pos.append(resize_rgb(scene.image[y0:y1, x0:x1], size, size))
+        if len(neg) < n_neg:
+            restricted = scene.boxes.astype(np.float64)
+            for _ in range(8):
+                try:
+                    patch, _ = sampling_ops.random_img_patch(
+                        scene.image, restricted, 0.05, 24, rng
+                    )
+                except (sampling_ops.PotentialDeadlockError, ValueError):
+                    break
+                neg.append(resize_rgb(patch, size, size))
+    images = np.stack(pos[:n_pos] + neg[:n_neg])
+    labels = np.concatenate([np.ones(n_pos, np.int32), np.zeros(n_neg, np.int32)])
+    return images, labels
+
+
+def make_multiresolution_scene_patch_dataset(
+    n_pos: int, n_neg: int, sizes: List[int], seed: int = 0
+) -> dict:
+    """Scene-sampled patches rendered at aligned cascade resolutions
+    (pixel-aligned across sizes like
+    :func:`make_multiresolution_patch_dataset`)."""
+    images_top, labels = make_scene_patch_dataset(n_pos, n_neg, max(sizes), seed)
+    return {"images": aligned_views(images_top, sizes), "labels": labels}

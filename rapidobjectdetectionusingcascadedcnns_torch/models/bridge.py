@@ -30,7 +30,7 @@ def params_from_numpy(tree, device=None) -> Params:
     device = resolve_device(device)
     if "backbone" in tree:
         raise NotImplementedError(
-            "the Inception backbone is not ported yet (ROADMAP Queue A item 12)"
+            "the Inception backbone is not ported yet (ROADMAP Queue A item 7)"
         )
     return {
         "conv": [
@@ -50,7 +50,7 @@ def stage_config_from_jax(cfg) -> StageConfig:
     """A JAX ``StageConfig`` (read by attribute, jax is not imported)."""
     if getattr(cfg, "backbone", "custom") != "custom":
         raise NotImplementedError(
-            "the Inception backbone is not ported yet (ROADMAP Queue A item 12)"
+            "the Inception backbone is not ported yet (ROADMAP Queue A item 7)"
         )
     return StageConfig(
         input_size=cfg.input_size,
@@ -89,7 +89,7 @@ def cascade_model_from_jax_arrays(
 def _stage_config_from_json(d: dict) -> StageConfig:
     if d.get("backbone", "custom") != "custom":
         raise NotImplementedError(
-            "the Inception backbone is not ported yet (ROADMAP Queue A item 12)"
+            "the Inception backbone is not ported yet (ROADMAP Queue A item 7)"
         )
     return StageConfig(
         input_size=d["input_size"],

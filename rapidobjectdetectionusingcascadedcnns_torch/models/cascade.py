@@ -31,7 +31,7 @@ overflow is saturation too, and ends in a re-run with K1 if escalation
 cannot cure it.
 
 Not ported yet, and raising ``NotImplementedError`` rather than being
-rerouted: meshes (ROADMAP Queue A item 11).
+rerouted: meshes (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -474,7 +474,7 @@ class CascadeDetector:
     def __init__(self, model: CascadeModel, capacity_schedule=None, mesh=None):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh: multi-device serving is not ported yet (ROADMAP Queue A item 11)"
+                "mesh: multi-device serving is not ported yet (ROADMAP Queue A item 6)"
             )
         if model.n_nets < 2:
             raise ValueError("a cascade must consist of at least two nets")

@@ -57,7 +57,7 @@ class StageConfig:
 
         if cf.get("append_inception"):
             raise NotImplementedError(
-                "the Inception backbone is not ported yet (ROADMAP Queue A item 12)"
+                "the Inception backbone is not ported yet (ROADMAP Queue A item 7)"
             )
         dtype = (
             torch.bfloat16 if cf.get("compute_dtype") == "bfloat16" else torch.float32

@@ -26,7 +26,7 @@ Layout on disk (``save_bundle``)::
 
 Not ported yet, and raising ``NotImplementedError``: a dynamic batch and
 programs for another device than the export device (ROADMAP Queue A item
-9b), meshes and window-sharded bundles (item 11).
+3), meshes and window-sharded bundles (item 6).
 """
 
 from __future__ import annotations
@@ -261,17 +261,17 @@ def export_detector(
     and ``mesh`` are not ported yet and raise ``NotImplementedError``."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh: frame-sharded bundles are not ported yet (ROADMAP Queue A item 11)"
+            "mesh: frame-sharded bundles are not ported yet (ROADMAP Queue A item 6)"
         )
     if batch == "dynamic":
         raise NotImplementedError(
-            'batch="dynamic": dynamic-batch bundles are not ported yet (ROADMAP Queue A item 9b)'
+            'batch="dynamic": dynamic-batch bundles are not ported yet (ROADMAP Queue A item 3)'
         )
     device = model.device
     if platforms is not None and list(platforms) != [device.type]:
         raise NotImplementedError(
             "platforms={}: a bundle runs on its export device ({}) only; other "
-            "platforms are not ported yet (ROADMAP Queue A item 9b)".format(
+            "platforms are not ported yet (ROADMAP Queue A item 3)".format(
                 list(platforms), device.type
             )
         )
@@ -398,7 +398,7 @@ def export_window_sharded(*args, **kwargs) -> ServingBundle:
     for the port of meshes."""
     raise NotImplementedError(
         "export_window_sharded: window-sharded bundles are not ported yet "
-        "(ROADMAP Queue A item 11)"
+        "(ROADMAP Queue A item 6)"
     )
 
 
@@ -446,7 +446,7 @@ def load_bundle(dir_path: str, device=None) -> "ServingDetector":
     if device.type != meta["device"]:
         raise NotImplementedError(
             "this bundle was exported for {}; running it on {} is not ported yet "
-            "(ROADMAP Queue A item 9b)".format(meta["device"], device.type)
+            "(ROADMAP Queue A item 3)".format(meta["device"], device.type)
         )
     weights = []
     with np.load(os.path.join(dir_path, "weights.npz")) as z:

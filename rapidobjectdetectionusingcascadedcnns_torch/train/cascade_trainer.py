@@ -18,10 +18,9 @@ Re-design of ``TrainCascadeApp`` (app/train_cascade_app.py:41-440):
 
 Every stage trains on the CUDA card unless given ``device="cpu"``; the
 result is the port's ``CascadeModel``, which detects through
-``CascadeDetector``. The scene-sampled corpora, mined hard examples
-(ROADMAP Queue A item 10b), meshes (item 11), the appended Inception
-stage and per-stage trunk widths of Inception cascades (item 12) are not
-ported and raise.
+``CascadeDetector``. Meshes (ROADMAP Queue A item 6), the appended
+Inception stage and per-stage trunk widths of Inception cascades (item 7)
+are not ported and raise.
 """
 
 from __future__ import annotations
@@ -50,28 +49,65 @@ class DatasetProvider(Protocol):
 class SyntheticProvider:
     """Multi-resolution synthetic patch datasets with aligned sample order.
 
-    ``source="patches"`` (procedural face/texture patches) is the one
-    source ported; ``"scenes"``/``"mixed"`` and the mined
-    ``hard_negatives``/``hard_positives`` wait for ROADMAP Queue A item 10b.
+    ``source``: "patches" (procedural face/texture patches), "scenes"
+    (patches sampled from full scenes via the offline-sampling flow, the
+    distribution pyramid windows actually see), or "mixed" (``n - n // 2``
+    patches and ``n // 2`` scene samples of each label, the scenes drawn
+    from ``seed + 1``).
+
+    ``hard_negatives`` / ``hard_positives``: optional (N, top, top, 3)
+    uint8 arrays of mined windows (tools/mine_torch_hard_negatives.py,
+    tools/mine_torch_hard_positives.py) at the top stage resolution,
+    appended as background / foreground samples (negatives first) before
+    the shuffle, their lower resolutions by the corpora's aligned block
+    mean: the bootstrap step of the reference's sampling design.
     """
 
     def __init__(
         self, n_pos: int, n_neg: int, sizes: List[int], seed: int = 0,
         source: str = "patches", hard_negatives=None, hard_positives=None,
     ):
-        from ..data.synthetic import make_multiresolution_patch_dataset
+        from ..data.synthetic import (
+            aligned_views,
+            make_multiresolution_patch_dataset,
+            make_multiresolution_scene_patch_dataset,
+        )
 
-        if source in ("scenes", "mixed"):
-            raise NotImplementedError(
-                "the {!r} corpus is not ported yet (ROADMAP Queue A item 10b)".format(source)
+        if source == "patches":
+            bundle = make_multiresolution_patch_dataset(n_pos, n_neg, sizes, seed)
+        elif source == "scenes":
+            bundle = make_multiresolution_scene_patch_dataset(n_pos, n_neg, sizes, seed)
+        elif source == "mixed":
+            a = make_multiresolution_patch_dataset(
+                n_pos - n_pos // 2, n_neg - n_neg // 2, sizes, seed
             )
-        if source != "patches":
+            b = make_multiresolution_scene_patch_dataset(n_pos // 2, n_neg // 2, sizes, seed + 1)
+            bundle = {
+                "labels": np.concatenate([a["labels"], b["labels"]]),
+                "images": {s: np.concatenate([a["images"][s], b["images"][s]])
+                           for s in a["images"]},
+            }
+        else:
             raise ValueError("unknown corpus source {!r}".format(source))
-        if hard_negatives is not None or hard_positives is not None:
-            raise NotImplementedError(
-                "mined hard examples are not ported yet (ROADMAP Queue A item 10b)"
-            )
-        bundle = make_multiresolution_patch_dataset(n_pos, n_neg, sizes, seed)
+
+        top = max(sizes)
+        for patches, label in ((hard_negatives, IID_BACKGROUND), (hard_positives, IID_FOREGROUND)):
+            if patches is None or not len(patches):
+                continue
+            mined = np.asarray(patches, np.uint8)
+            if mined.shape[1] != top:
+                raise ValueError(
+                    "mined patches must be at the top stage resolution "
+                    "({}), got {}".format(top, mined.shape[1])
+                )
+            views = aligned_views(mined, sizes)
+            bundle = {
+                "labels": np.concatenate(
+                    [bundle["labels"], np.full(len(mined), label, np.int32)]
+                ),
+                "images": {s: np.concatenate([imgs, views[s]])
+                           for s, imgs in bundle["images"].items()},
+            }
         perm = deterministic_shuffle(len(bundle["labels"]), cf.get("shuffle_seed"))
         self._labels = bundle["labels"][perm]
         self._images = {s: imgs[perm] for s, imgs in bundle["images"].items()}

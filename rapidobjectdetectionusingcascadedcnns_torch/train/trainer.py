@@ -21,7 +21,7 @@ The device work goes through :mod:`.train_step`; the loop is host
 orchestration, with the batch stream of the JAX package's seeded iterators
 (the same seeds give the same batches in both packages). It runs on the
 CUDA card unless given ``device="cpu"``. Data-parallel meshes (ROADMAP
-Queue A item 11) and the Inception backbone (item 12) are not ported and
+Queue A item 6) and the Inception backbone (item 7) are not ported and
 raise.
 """
 
@@ -54,12 +54,12 @@ class ConstantPredictionException(Exception):
 def refuse_unported(mesh, use_inception: bool) -> None:
     if mesh is not None or cf.get("train_mesh_devices") not in (None, 0, 1, False):
         raise NotImplementedError(
-            "data-parallel training meshes are not ported yet (ROADMAP Queue A item 11)"
+            "data-parallel training meshes are not ported yet (ROADMAP Queue A item 6)"
         )
     if use_inception:
         raise NotImplementedError(
             "the Inception backbone and its frozen-trunk training are not ported yet "
-            "(ROADMAP Queue A item 12)"
+            "(ROADMAP Queue A item 7)"
         )
 
 

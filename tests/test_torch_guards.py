@@ -199,29 +199,47 @@ def _tiny_model():
 @pytest.mark.parametrize(
     "entry, what",
     [
-        (lambda m: tcascade.CascadeDetector(m, mesh=object()), "item 11"),
-        (lambda m: tserve.export_detector(m, 40, 48, mesh=object()), "item 11"),
-        (lambda m: tserve.export_window_sharded(m, 40, 48, object()), "item 11"),
-        (lambda m: tct.CascadeTrainer(None, mesh=object(), device="cpu"), "item 11"),
-        (lambda m: ttrainer.SingleNetTrainer(None, mesh=object(), device="cpu"), "item 11"),
+        (lambda m: tcascade.CascadeDetector(m, mesh=object()), "item 6"),
+        (lambda m: tserve.export_detector(m, 40, 48, mesh=object()), "item 6"),
+        (lambda m: tserve.export_window_sharded(m, 40, 48, object()), "item 6"),
+        (lambda m: tct.CascadeTrainer(None, mesh=object(), device="cpu"), "item 6"),
+        (lambda m: ttrainer.SingleNetTrainer(None, mesh=object(), device="cpu"), "item 6"),
         (lambda m: ttrainer.SingleNetTrainer(None, use_inception=True, device="cpu"),
-         "item 12"),
-        (lambda m: tct.SyntheticProvider(4, 4, [12], source="scenes"), "item 10b"),
-        (lambda m: tct.SyntheticProvider(4, 4, [12], source="mixed"), "item 10b"),
-        (lambda m: tct.SyntheticProvider(4, 4, [12], hard_negatives=np.zeros((1, 12, 12, 3))),
-         "item 10b"),
+         "item 7"),
     ],
     ids=["detector mesh", "bundle mesh", "window-sharded bundle", "cascade trainer mesh",
-         "trainer mesh", "trainer inception", "scene corpus", "mixed corpus",
-         "hard negatives"],
+         "trainer mesh", "trainer inception"],
 )
 def test_unported_paths_raise(entry, what):
-    """Meshes (ROADMAP Queue A item 11), the Inception backbone (item 12)
-    and the scene corpora and mined hard examples (item 10b) are not
-    ported: the entry points that take one raise, naming the item, rather
-    than running without it."""
+    """Meshes (ROADMAP Queue A item 6) and the Inception backbone (item 7)
+    are not ported: the entry points that take one raise, naming the item,
+    rather than running without it."""
     with pytest.raises(NotImplementedError, match=what):
         entry(_tiny_model())
+
+
+def test_flagship_tools_never_import_jax():
+    """Importing the port's flagship, mining and sweep tools, in a fresh
+    interpreter, loads neither jax nor any module of the JAX package."""
+    code = (
+        "import importlib.util, os, sys\n"
+        "sys.path.insert(0, os.path.join({repo!r}, 'tools'))\n"
+        "for name in ('train_torch_flagship', 'mine_torch_hard_negatives',\n"
+        "             'mine_torch_hard_positives', 'sweep_torch_flagship'):\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        name, os.path.join({repo!r}, 'tools', name + '.py'))\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'rapidobjectdetectionusingcascadedcnns_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    ).format(repo=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
 
 
 @pytest.mark.parametrize("choice", ["xla", False, "einsum"])
@@ -258,5 +276,5 @@ def test_resolve_resample_impl(settings, impl):
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         tcascade.CascadeDetector(_tiny_model(), mesh=object())

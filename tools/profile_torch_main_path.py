@@ -20,14 +20,23 @@ capacities [16512, 4224]; open capacities [131903, 131903] (the last
 rung of escalation), as one batched pass; and default capacities with
 ``dyn_reextract="on"`` (kernel K4 for re-extraction).
 
+``--flagship``: the port-trained flagship (``artifacts/model_torch_flagship_*``
+from tools/train_torch_flagship.py) at its recorded operating point
+(threshold and min_neighbors of ``artifacts/torch_flagship_eval.json``)
+instead of random weights; the VGA path then also runs at the capacities
+``capacity_schedule_from_quality`` gives from its measured survivor maxima,
+first.
+
 For each setting it prints the median wall time of a batch, the kernel
 launches per batch, the host time spent in NMS (``serve.postprocess_raw``,
 which decodes every packed row, re-dispatched ones included), the device's
 busy share (sum of kernel time over wall time, from torch.profiler) and
 the kernels that take the most device time;
 the full tables go to ``chiprun_out/profile_main_path.txt`` (or
-``profile_dense_path.txt``). Run from the repository root on a machine with
-a card: ``python3 tools/profile_torch_main_path.py [--dense]``.
+``profile_dense_path.txt``, with ``_flagship`` before the suffix for
+``--flagship``). Run from the repository root on a machine with a card:
+``python3 tools/profile_torch_main_path.py [--dense] [--nms-on-device]
+[--flagship]``.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 OUT_DIR = "chiprun_out"
 
@@ -96,6 +106,9 @@ def main(argv=None) -> int:
                         help="profile the 450x450 scale-factor-1.005 crop-mode path")
     parser.add_argument("--nms-on-device", action="store_true",
                         help="VGA path: add default capacities with the device NMS tail (K3)")
+    parser.add_argument("--flagship", action="store_true",
+                        help="the port-trained flagship at its operating point, not random "
+                        "weights")
     args = parser.parse_args(argv)
     if args.dense and args.nms_on_device:
         parser.error("--nms-on-device profiles the VGA path only")
@@ -116,7 +129,7 @@ def main(argv=None) -> int:
         windows_sched_cuda,
     )
 
-    from rapidobjectdetectionusingcascadedcnns_torch import serve
+    from rapidobjectdetectionusingcascadedcnns_torch import native, serve
 
     kernels = (("K1", windows_cuda), ("K2", windows_sched_cuda), ("K4", windows_dyn_cuda),
                ("K3", nms_cuda))
@@ -142,7 +155,24 @@ def main(argv=None) -> int:
     if args.nms_on_device:  # last, so the settings before it keep host NMS
         settings.append(("default caps, nms_on_device",
                          {"cascade_capacity_schedule": None, "nms_on_device": True}))
-    model = cascade.build_cascade_model(seed=0, device="cuda")
+    if args.flagship:
+        import train_torch_flagship as flagship
+
+        model, quality = flagship.load_flagship(), flagship.load_flagship_quality()
+        if model is None or quality is None:
+            print("no port flagship: run tools/train_torch_flagship.py", file=sys.stderr)
+            return 2
+        cf.set("foreground_confidence_threshold", quality["threshold"])
+        cf.set("nms_opencv_min_neighbors", quality["min_neighbors"])
+        if not args.dense:
+            caps = flagship.capacity_schedule_from_quality(quality)
+            settings.insert(0, ("flagship caps {}".format(caps),
+                                {"cascade_capacity_schedule": caps}))
+        out_name = out_name.replace(".txt", "_flagship.txt")
+        print("flagship: threshold {}, min_neighbors {}, survivors max {}".format(
+            quality["threshold"], quality["min_neighbors"], quality["survivors_max"]))
+    else:
+        model = cascade.build_cascade_model(seed=0, device="cuda")
     os.makedirs(OUT_DIR, exist_ok=True)
     print("card:", card)
     tables = []
@@ -180,9 +210,10 @@ def main(argv=None) -> int:
         med = statistics.median(walls)
         print("{}: batch wall median {:.4f} s of {} -> {:.2f} frames/s; re-dispatches "
               "{}, launches per batch {}; host NMS {:.4f} s per batch over {} decoded "
-              "rows; survivors frame 0 {}".format(
+              "rows (native.available() {}); survivors frame 0 {}".format(
                   label, med, [round(w, 4) for w in walls], len(frames) / med,
-                  redispatches, launches, nms_s, nms_calls, res[0].n_survivors_per_stage))
+                  redispatches, launches, nms_s, nms_calls, native.available(),
+                  res[0].n_survivors_per_stage))
         print("{}: profiled batch wall {:.4f} s, device kernel time {:.4f} s, busy "
               "share {:.3f}".format(label, prof_wall, device_us / 1e6,
                                    device_us / 1e6 / prof_wall))
