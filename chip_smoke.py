@@ -107,7 +107,34 @@ Phases (each checked; any failure exits non-zero):
      ``set_numerics`` leaves it); the device NMS tail equal to host NMS, K3
      at the flagship's last capacity; the dense 4-frame batch at the
      default capacities and with ``dyn_reextract="on"`` (walls,
-     re-dispatches, K1/K2/K4 launches, host NMS and decoded rows).
+     re-dispatches, K1/K2/K4 launches, host NMS and decoded rows);
+  19. the FDDB app with phase 18's flagship at its threshold and
+     min_neighbors: ``EvaluateFDDBApp`` on the card over the synthetic
+     10-fold corpus (2 images a fold at its default sizes 240x320, 200x280,
+     320x240) with its forced settings (scale factor 1.005, one image a
+     call, corpus-derived resize buckets; crop mode, K2 then K1), the launch
+     counts reset just before and read just after, and held to the
+     dispatches: K2 once for each dispatch at a size with a K2 schedule,
+     K1 over 16,384-box chunks for stage 0 at the size without one
+     (320x240, narrower than 256 columns) and once for each re-extraction;
+     images, s/image, re-dispatches, host plan and K2 schedule seconds per
+     new size, host NMS, the ROC's last point (``fddb_roc.json`` written
+     and not empty); K2 and K1 against their plain versions at this path's
+     shapes (a scheduled-size corpus image at its default capacities, and
+     K1's 12 px stage-0 chunk on a 320x240 one); then the same app on the CPU
+     over the first 2 folds, at capacities from the card's survivor maxima,
+     fold files compared: the same keys, survivor flips at most 2% and box
+     counts apart by at most the flips;
+  20. the runtime app: the flagship cascade against a 48 px single net
+     (conv [32], fc1 512, fresh weights from seed 0) at VGA, scale factor
+     1.1, threshold 0.5, min_neighbors 1, each family warmed then timed: on
+     the card over 16 positive and 4 negative scenes, on the CPU over 4;
+     fps and the cascade's speedup (the single net runs gather mode: no
+     hand-written kernel);
+  21. the CLI: ``python -m rapidobjectdetectionusingcascadedcnns_torch.run
+     inference-cascade`` in a subprocess, on the flagship saved as a
+     checkpoint and 3 VGA images set by a ``rodc_local.py`` overlay: exit 0
+     and a detection count reported.
 
 Kernels against plain versions: at most 1e-4 of the values may differ, each
 by at most 1 (bit-exact is expected); K3's and K2p's outputs must be equal.
@@ -117,8 +144,8 @@ yardstick without the two bf16 rounding points and the u8 quantisation,
 never called by the port; K3 has none. The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel with
 its launches on its path, error, times and bound (K1 once for each path,
-at that path's shapes); the line before that is
-the card's name and power limit. Without CUDA the script prints a message
+at that path's shapes; K2, K1's re-extraction and K1's stage 0 also for the
+FDDB app); the line before that is the card's name and power limit. Without CUDA the script prints a message
 to stderr and exits 2.
 """
 
@@ -310,12 +337,14 @@ def vga_k1_inputs(torch, device, detector, frames):
 
 
 def dense_k1_inputs(torch, device, frames):
-    """K1's inputs on the dense path: the frames' bf16 planes and the
-    window boxes of the 450x450 pyramid at scale factor 1.005."""
+    """K1's inputs on a dense path: the frames' bf16 planes and the window
+    boxes of their pyramid at scale factor 1.005 (450x450 on the dense
+    path)."""
     from rapidobjectdetectionusingcascadedcnns_torch.ops import pyramid, windows
 
-    plan = pyramid.build_plan(*DENSE_HW, 12, 12, 0.075, DENSE_WSF)
-    assert plan.n_windows == DENSE_WINDOWS
+    hw = frames[0].shape[:2]
+    plan = pyramid.build_plan(*hw, 12, 12, 0.075, DENSE_WSF)
+    assert hw != DENSE_HW or plan.n_windows == DENSE_WINDOWS
     coords = torch.as_tensor(pyramid.window_table(plan)["coords_norm"], device=device).float()
     return windows.to_planes_bf16(_dense_images(torch, device, frames)), coords
 
@@ -433,7 +462,8 @@ def _dense_images(torch, device, frames):
 
 def phase_k2(torch, device, frames):
     """7. K2 against its plain version on every slot of the FDDB-density
-    schedule."""
+    schedule of the frames (4 of 450x450 on the dense path; one corpus
+    image in phase 19)."""
     import numpy as np
     from rapidobjectdetectionusingcascadedcnns_torch.ops import (
         pyramid,
@@ -442,9 +472,10 @@ def phase_k2(torch, device, frames):
         windows_sched_cuda,
     )
 
-    plan = pyramid.build_plan(*DENSE_HW, 12, 12, 0.075, DENSE_WSF)
+    hw = frames[0].shape[:2]
+    plan = pyramid.build_plan(*hw, 12, 12, 0.075, DENSE_WSF)
     sched = windows_sched.schedule_for_plan(plan, 12, 12)
-    assert sched is not None and plan.n_windows == DENSE_WINDOWS
+    assert sched is not None and (hw != DENSE_HW or plan.n_windows == DENSE_WINDOWS)
     boxes = torch.as_tensor(pyramid.window_table(plan)["boxes_float"], device=device)
     images = _dense_images(torch, device, frames)
     sy, sx, tiles = windows_sched.scheduled_positions(boxes, sched, device)
@@ -465,20 +496,19 @@ def phase_k2(torch, device, frames):
     pms = _median_ms(plain, torch, warmup=1, iters=5, reps=1)
     # the yardstick samples every slot at its global positions
     order = sched.device_tables(device)[0]
-    gsy, gsx = windows.sample_positions(boxes, *DENSE_HW, 12, 12)
-    lib_ms = _grid_sample_ms(torch, planes, gsy[order].expand(DENSE_FRAMES, -1, -1),
-                             gsx[order].expand(DENSE_FRAMES, -1, -1))
+    gsy, gsx = windows.sample_positions(boxes, *hw, 12, 12)
+    lib_ms = _grid_sample_ms(torch, planes, gsy[order].expand(len(frames), -1, -1),
+                             gsx[order].expand(len(frames), -1, -1))
     bound_ms, bound_by = _bound((planes, sy, sx, tiles), (got,), got.numel())
     smem, budget = windows_sched_cuda.launch_geometry(sched.tile, 12, 12, planes.shape[1])
-    staged = windows_sched_cuda.staging_bytes(sy, sx, tiles, sched.tile, planes.shape[1],
-                                              *DENSE_HW)
+    staged = windows_sched_cuda.staging_bytes(sy, sx, tiles, sched.tile, planes.shape[1], *hw)
     n_direct = int(((staged < 0) | (staged > budget)).sum())
     print("K2 {} frames {}x{} wsf {}: n_slots {} for {} windows in {} classes {}; "
           "{} of {} values differ (max {}), kernel {:.4f} ms, plain {:.4f} ms, grid_sample "
           "{:.4f} ms, bound {:.4f} ms ({}), {:.1%} of the bound reached; {} B shared a "
           "block, staging budget {} B, staged support per tile median {:.0f} B max {} B, "
           "{} of {} tiles over the budget (sampled from the planes)".format(
-              DENSE_FRAMES, DENSE_HW[0], DENSE_HW[1], DENSE_WSF, sched.n_slots,
+              len(frames), hw[0], hw[1], DENSE_WSF, sched.n_slots,
               plan.n_windows, len(sched.classes),
               [(c.cell_r, c.cell_c, c.n_tiles) for c in sched.classes],
               n_bad, total, err, ms, pms, lib_ms, bound_ms, bound_by, bound_ms / ms, smem,
@@ -1497,7 +1527,364 @@ def phase_flagship(torch, device, frames, dense, kind, card):
     finally:
         cf.restore(saved)
     return {"k1": (k1_launches, k1), "k3": (k3_launches, k3), "caps": caps,
-            "k1_dense": k1_dense, "k2_dense": k2_dense, "k4_dense": k4_dense}
+            "k1_dense": k1_dense, "k2_dense": k2_dense, "k4_dense": k4_dense, "model": model}
+
+FDDB_IMGS_PER_FOLD = 2  # the synthetic 10-fold corpus at its default sizes
+FDDB_CPU_FOLDS = 2  # the folds the CPU runs again
+RUNTIME_POS, RUNTIME_NEG, RUNTIME_CPU_SCENES = 16, 4, 4
+
+
+@contextlib.contextmanager
+def _host_plan_timer():
+    """Host seconds of the pyramid plans (``build_plan`` + ``window_table``,
+    on a detector's plan-cache misses) and of the stage-0 schedules
+    (``windows_sched.schedule_for_plan``, cached per plan), per image size.
+    Yields {"plan": {(h, w): s}, "sched": {(h, w): s}}."""
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import windows_sched
+
+    acc = {"plan": {}, "sched": {}}
+    real = {"build_plan": cascade.build_plan, "window_table": cascade.window_table,
+            "schedule_for_plan": windows_sched.schedule_for_plan}
+
+    def timed(fn, kind, size_of):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                size = size_of(args)
+                acc[kind][size] = acc[kind].get(size, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    cascade.build_plan = timed(real["build_plan"], "plan", lambda a: (a[0], a[1]))
+    cascade.window_table = timed(real["window_table"], "plan", lambda a: (a[0].img_h, a[0].img_w))
+    windows_sched.schedule_for_plan = timed(real["schedule_for_plan"], "sched",
+                                            lambda a: (a[0].img_h, a[0].img_w))
+    try:
+        yield acc
+    finally:
+        cascade.build_plan = real["build_plan"]
+        cascade.window_table = real["window_table"]
+        windows_sched.schedule_for_plan = real["schedule_for_plan"]
+
+
+@contextlib.contextmanager
+def _captured_results():
+    """Every list of results the inference apps return, in call order."""
+    from rapidobjectdetectionusingcascadedcnns_torch.apps import inference_apps
+
+    real = inference_apps.AbstractInferenceApp.run_inference_on_images
+    captured = []
+
+    def capture(self, *args, **kwargs):
+        out = real(self, *args, **kwargs)
+        captured.append(out)
+        return out
+
+    inference_apps.AbstractInferenceApp.run_inference_on_images = capture
+    try:
+        yield captured
+    finally:
+        inference_apps.AbstractInferenceApp.run_inference_on_images = real
+
+
+def _fddb_settings(cf, work, img_base, folds_dir, name):
+    """The FDDB app's paths under ``work`` and the flagship's operating
+    point, host NMS."""
+    import os
+
+    out = os.path.join(work, name)
+    cf.set("fddb_folds_dir", folds_dir)
+    cf.set("fddb_img_base_dir", img_base)
+    cf.set("fddb_detection_output_dir", out)
+    cf.set("fddb_latest_detection_output_dir", os.path.join(out, "latest"))
+    cf.set("fddb_per_evaluation_script_path", os.path.join(work, "missing.pl"))
+    cf.set("log_dir", os.path.join(work, "logs"))
+    cf.set("nms", cf.NMS_OPENCV)
+    cf.set("nms_on_device", False)
+    cf.set("foreground_confidence_threshold", FLAG_THRESHOLD)
+    cf.set("nms_opencv_min_neighbors", FLAG_MIN_NEIGHBORS)
+
+
+def _box_set(boxes):
+    return {tuple(round(float(v), 3) for v in row) for row in boxes}
+
+
+def phase_fddb(torch, model, kind, card):
+    """19. The FDDB app on the card with the flagship: the synthetic 10-fold
+    corpus (2 images a fold at its default sizes) through
+    ``EvaluateFDDBApp`` and its forced settings (scale factor 1.005, one
+    image a call, corpus-derived resize buckets); then the app again on the
+    CPU over the first 2 folds, fold files compared. Returns the card
+    run's launches of K2, of K1's re-extraction and of K1's stage 0 at the
+    unscheduled size, each with its measurement at that shape."""
+    import numpy as np
+    import os
+    import shutil
+
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.apps.evaluate_fddb import EvaluateFDDBApp
+    from rapidobjectdetectionusingcascadedcnns_torch.data import fddb
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+
+    windows_cuda, windows_sched_cuda, windows_dyn_cuda, nms_cuda = _kernel_modules()
+    saved = cf.snapshot()
+    work = tempfile.mkdtemp(prefix="chip_smoke_fddb_")
+    try:
+        img_base, folds_dir, _ = fddb.make_synthetic_corpus(
+            work, n_folds=10, imgs_per_fold=FDDB_IMGS_PER_FOLD, seed=0)
+        n_images = 10 * FDDB_IMGS_PER_FOLD
+        _fddb_settings(cf, work, img_base, folds_dir, "card")
+        torch.cuda.synchronize()
+        _reset_launches()
+        with _host_nms_timer() as nms, _host_plan_timer() as plans, _captured_results() as got:
+            t0 = time.perf_counter()
+            app = _quietly(lambda: EvaluateFDDBApp(model=model, n_folds=10, device="cuda"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        k1, k2 = windows_cuda.LAUNCHES, windows_sched_cuda.LAUNCHES
+        assert windows_dyn_cuda.LAUNCHES == nms_cuda.LAUNCHES == 0
+        detector = app.inference_app.detector
+
+        # Each dispatch of an image (its first run and each re-dispatch)
+        # runs stage 0 through K2 where its size has a schedule, else
+        # through K1 over chunks of inference_chunk_size boxes; and K1 once
+        # for each later stage's re-extraction.
+        infos = [i for fold_nr in range(1, 11) for i in fddb.image_infos_for_fold(fold_nr)]
+        sizes = [info.raw_original().shape[:2] for info in infos]
+        chunk = int(cf.get("inference_chunk_size"))
+        stage0 = model.stage_configs[0].input_size
+        unscheduled = {}  # size -> K1's stage-0 launches a dispatch
+        for size in set(sizes):
+            plan = detector._plan_and_table(*size)[0]
+            if cascade._stage0_schedule(plan, stage0, cascade.resolve_resample_impl(),
+                                        bool(cf.get("inference_high_precision"))) is None:
+                unscheduled[size] = -(-plan.n_windows // chunk)
+        n_sched = sum(size not in unscheduled for size in sizes)
+        dispatches = n_images + detector.redispatches
+        assert n_sched <= k2 <= n_sched + detector.redispatches, (k2, n_sched, dispatches)
+        assert len(set(unscheduled.values())) <= 1, unscheduled
+        k1_stage0 = (dispatches - k2) * max(unscheduled.values(), default=0)
+        assert unscheduled or k2 == dispatches, (k2, dispatches)
+        k1_reextract = (len(model.stage_configs) - 1) * dispatches
+        assert k1 == k1_stage0 + k1_reextract, (k1, k1_stage0, k1_reextract)
+        card_results = [r for batch in got for r in batch]
+        assert len(card_results) == n_images and len(app.fold_paths) == 10
+        assert cf.get("window_scale_factor") == DENSE_WSF and not cf.get("inference_merge")
+        buckets = cf.get("inference_resize_buckets")
+        assert sorted(map(tuple, buckets)) == sorted([(240, 320), (200, 280), (320, 240)]), buckets
+        assert set(sizes) == set(map(tuple, buckets)), (sorted(set(sizes)), buckets)
+        for fold_nr, path in enumerate(app.fold_paths, start=1):
+            parsed = fddb.parse_fold_results(path)
+            assert [p[0] for p in parsed] == fddb.read_fold(fold_nr)
+        for r in card_results:
+            s = r.n_survivors_per_stage
+            assert r.n_windows > 0 and len(s) == 3 and s[0] >= s[1] >= s[2] >= 0, s
+            assert r.boxes.ndim == 2 and bool(np.isfinite(r.boxes).all())
+        roc_path = os.path.join(app.export_dir, "fddb_roc.json")
+        assert os.path.exists(roc_path), roc_path
+        with open(roc_path) as f:
+            roc = json.load(f)
+        assert roc["roc"] and app.roc is not None, "the FDDB ROC is empty"
+        end = roc["roc"][-1]
+        print("FDDB app on {} [{}]: {} images of sizes {} in {:.2f} s = {:.4f} s/image "
+              "(first use of each size included); re-dispatches {} ({:.2f} an image) at the "
+              "default capacities {}; survivors per stage per image {}".format(
+                  kind, card, n_images, buckets, wall, wall / n_images, detector.redispatches,
+                  detector.redispatches / n_images,
+                  {size: cascade.default_capacity_schedule(
+                      detector._plan_and_table(*size)[0].n_windows, 3) for size in
+                   map(tuple, buckets)},
+                  [r.n_survivors_per_stage for r in card_results]))
+        print("FDDB app: host plan s per new size {}, K2 schedule s per size {}, host NMS "
+              "{:.4f} s over {} decoded rows, native.available() {}; launches K1 {} K2 {} "
+              "(one image a call)".format(
+                  {k: round(v, 4) for k, v in plans["plan"].items()},
+                  {k: round(v, 4) for k, v in plans["sched"].items()}, nms["s"], nms["rows"],
+                  _native(), k1, k2))
+        print("FDDB app: {} of {} images at a size with a K2 schedule; {} dispatches; K1 "
+              "launches {} for stage 0 at the unscheduled sizes {} ({}-box chunks) and {} for "
+              "re-extraction".format(n_sched, n_images, dispatches, k1_stage0,
+                                     sorted(unscheduled), chunk, k1_reextract))
+        print("FDDB app ROC: {} faces, {} detections, {} points; last point: detection rate "
+              "{:.4f} discrete / {:.4f} continuous at {} false positives (threshold {}, "
+              "min_neighbors {})".format(
+                  roc["n_faces"], roc["n_detections"], len(roc["roc"]), end["detection_rate"],
+                  end["detection_rate_continuous"], end["false_positives"], FLAG_THRESHOLD,
+                  FLAG_MIN_NEIGHBORS))
+        print("FDDB app: nvidia-smi {}".format(card))
+
+        # K1 and K2 at this path's shapes: a corpus image of a scheduled
+        # size at the default capacities of its pyramid, and K1's stage-0
+        # chunk on one of an unscheduled size
+        first = next(infos[i] for i, s in enumerate(sizes) if s not in unscheduled)
+        first = first.raw_original()
+        n_windows = detector._plan_and_table(*first.shape[:2])[0].n_windows
+        caps = cascade.default_capacity_schedule(n_windows, 3)
+        k2m = phase_k2(torch, torch.device("cuda"), [first])
+        k1m = phase_k1(torch, "FDDB app", *dense_k1_inputs(torch, torch.device("cuda"), [first]),
+                       {24: caps[0], 48: caps[1]})
+        k1s = None
+        if unscheduled:
+            other = next(infos[i] for i, s in enumerate(sizes) if s in unscheduled)
+            other = other.raw_original()
+            planes, coords = dense_k1_inputs(torch, torch.device("cuda"), [other])
+            k1s = phase_k1(torch, "FDDB app stage 0", planes, coords,
+                           {stage0: min(chunk, coords.shape[0])})
+            del planes, coords
+
+        # the CPU over the first folds, at capacities from the card's
+        # survivor maxima on those images (x1.1): re-dispatch makes the
+        # result independent of the capacities, the CPU need not repeat the
+        # card's re-runs, and its stage CNNs run on no more rows than needed
+        n_cpu = FDDB_CPU_FOLDS * FDDB_IMGS_PER_FOLD
+        top = np.max([r.n_survivors_per_stage[:-1] for r in card_results[:n_cpu]], axis=0)
+        cpu_caps = [int(-(-int(m * 1.1) // 128) * 128) for m in top]
+        cf.set("cascade_capacity_schedule", cpu_caps)
+        _fddb_settings(cf, work, img_base, folds_dir, "cpu")
+        with _captured_results() as got_cpu:
+            t0 = time.perf_counter()
+            cpu_app = _quietly(lambda: EvaluateFDDBApp(
+                model=model.to("cpu"), n_folds=FDDB_CPU_FOLDS, device="cpu"))
+            cpu_s = time.perf_counter() - t0
+        cpu_results = [r for batch in got_cpu for r in batch]
+        assert len(cpu_results) == n_cpu
+        flips, box_diffs, counts = [], [], []
+        for fold_nr in range(1, FDDB_CPU_FOLDS + 1):
+            card_fold = fddb.parse_fold_results(app.fold_paths[fold_nr - 1])
+            cpu_fold = fddb.parse_fold_results(cpu_app.fold_paths[fold_nr - 1])
+            assert [p[0] for p in cpu_fold] == [p[0] for p in card_fold]
+            for (_, cb, _), (_, gb, _) in zip(cpu_fold, card_fold):
+                box_diffs.append(len(_box_set(cb) ^ _box_set(gb)))
+                counts.append((len(gb), len(cb)))
+        for i, (g, c) in enumerate(zip(card_results[:n_cpu], cpu_results)):
+            f, allowed, ids_g, ids_c = _flips(g, c)
+            flips.append(len(f))
+            assert len(f) <= allowed, (i, len(f), allowed)
+            assert abs(counts[i][0] - counts[i][1]) <= len(f), (i, counts[i], len(f))
+        print("FDDB app card vs cpu ({} folds, {} images, bf16, cpu capacities {}): last-stage "
+              "survivor flips per image {} (allowed {:.0%} of the survivors), fold-file boxes "
+              "(card, cpu) {}, fold-file boxes that differ {}; the cpu took {:.2f} s with {} "
+              "re-dispatches".format(
+                  FDDB_CPU_FOLDS, n_cpu, cpu_caps, flips, BORDERLINE_FRACTION, counts,
+                  box_diffs, cpu_s, cpu_app.inference_app.detector.redispatches))
+    finally:
+        cf.restore(saved)
+        shutil.rmtree(work, ignore_errors=True)
+    return {"k1": (k1_reextract, k1m), "k1_stage0": (k1_stage0, k1s), "k2": (k2, k2m),
+            "unscheduled": sorted(unscheduled), "chunk": chunk}
+
+
+def phase_runtime(torch, model, kind, card):
+    """20. The runtime app: the flagship cascade against a 48 px single net
+    (conv [32], fc1 512, fresh weights from seed 0) at the reference's
+    inference geometry (VGA, scale factor 1.1, threshold 0.5,
+    min_neighbors 1), on the card over 16 positive and 4 negative scenes,
+    then on the CPU over 4 of them."""
+    import numpy as np
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.apps.evaluate_runtime import (
+        EvaluateRuntimeApp,
+    )
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cnn
+    from rapidobjectdetectionusingcascadedcnns_torch.models.single import SingleNetDetector
+
+    windows_cuda, windows_sched_cuda, _, _ = _kernel_modules()
+    saved = cf.snapshot()
+    try:
+        for key, value in (("window_scale_factor", 1.1), ("min_window_length", 0.075),
+                           ("foreground_confidence_threshold", 0.5), ("nms", cf.NMS_OPENCV),
+                           ("nms_opencv_min_neighbors", 1), ("dataset_keys", ["synthetic"]),
+                           ("inference_merge", True), ("log_auto_save", False),
+                           ("conv_filter_sizes", [32]), ("fc1_size", 512)):
+            cf.set(key, value)
+        scfg = cnn.StageConfig.from_config(48, bottleneck_in_size=None)
+        single = SingleNetDetector(
+            cnn.init_stage(scfg, torch.Generator().manual_seed(0)), scfg,
+            np.full((48, 48, 3), 127.5, np.float32), np.full((48, 48, 3), 64.0, np.float32),
+            "cuda")
+        _reset_launches()
+        t0 = time.perf_counter()
+        app = _quietly(lambda: EvaluateRuntimeApp(
+            n_positive=RUNTIME_POS, n_negative=RUNTIME_NEG, cascade_model=model,
+            single_detector=single, device="cuda"))
+        card_s = time.perf_counter() - t0
+        k1, k2 = windows_cuda.LAUNCHES, windows_sched_cuda.LAUNCHES
+        assert k1 >= 2 and k2 == 0, (k1, k2)
+        images = app._images_cache
+        assert len(images) == RUNTIME_POS + RUNTIME_NEG
+        t0 = time.perf_counter()
+        cpu_app = _quietly(lambda: EvaluateRuntimeApp(
+            images=images[:RUNTIME_CPU_SCENES], cascade_model=model, single_detector=single,
+            device="cpu"))
+        cpu_s = time.perf_counter() - t0
+    finally:
+        cf.restore(saved)
+    for label, a, n in (("card", app, len(images)), ("cpu", cpu_app, RUNTIME_CPU_SCENES)):
+        r = a.results
+        assert r["cascade"]["fps"] > 0 and r["single"]["fps"] > 0
+        print("runtime app ({}, {} VGA scenes): cascade {:.2f} fps ({:.4f} s/image), single "
+              "48 px net {:.2f} fps ({:.4f} s/image), cascade speedup {:.2f}x".format(
+                  label, n, r["cascade"]["fps"], r["cascade"]["avg_seconds_per_image"],
+                  r["single"]["fps"], r["single"]["avg_seconds_per_image"],
+                  r["speedup_cascade_vs_single"]["value"]))
+    print("runtime app: K1 launches {} over the cascade's warm and timed card runs; K2 {} (both "
+          "stage 0s run in gather mode at VGA 1.1: the single net launches no hand-written "
+          "kernel); card app {:.2f} s, cpu app {:.2f} s in all; on {} [{}]".format(
+              k1, k2, card_s, cpu_s, kind, card))
+
+
+def phase_cli(torch, model):
+    """21. The CLI: ``python -m rapidobjectdetectionusingcascadedcnns_torch.run
+    inference-cascade`` in a subprocess, on the flagship saved as a
+    checkpoint and a small file tree set by a ``rodc_local.py`` overlay."""
+    import os
+    import shutil
+
+    from PIL import Image
+    from rapidobjectdetectionusingcascadedcnns_torch.data import synthetic
+    from rapidobjectdetectionusingcascadedcnns_torch.train import checkpoint
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        checkpoint.save_cascade(os.path.join(work, "models"), "flagship", model)
+        native = os.path.join(work, "native")
+        for label, seeds in (("foreground", (40, 41)), ("background", (42,))):
+            os.makedirs(os.path.join(native, "testset", label))
+            for s in seeds:
+                scene = synthetic.make_scene(IMG_H, IMG_W, 3 if label == "foreground" else 0,
+                                             seed=s, min_face=48, max_face=120)
+                Image.fromarray(scene.image).save(
+                    os.path.join(native, "testset", label, "{}.png".format(s)))
+        with open(os.path.join(work, "rodc_local.py"), "w") as f:
+            f.write("cf = {!r}\n".format({
+                "output_graph_dir": os.path.join(work, "models"),
+                "default_evaluation_model_cascade": "flagship",
+                "dataset_native_path_root": native, "dataset_keys": ["testset"],
+                "class_min_images": None, "foreground_confidence_threshold": FLAG_THRESHOLD,
+                "nms_opencv_min_neighbors": FLAG_MIN_NEIGHBORS, "log_auto_save": False,
+            }))
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, RODC_HOME=work)
+        env["PYTHONPATH"] = os.pathsep.join([work, repo, env.get("PYTHONPATH", "")])
+        command = [sys.executable, "-m", "rapidobjectdetectionusingcascadedcnns_torch.run",
+                   "inference-cascade"]
+        t0 = time.perf_counter()
+        out = subprocess.run(command, cwd=work, env=env, capture_output=True, text=True,
+                             timeout=300)
+        wall = time.perf_counter() - t0
+        assert out.returncode == 0, (out.returncode, out.stdout[-2000:], out.stderr[-2000:])
+        lines = [line for line in out.stdout.splitlines() if "detections: " in line]
+        assert lines and "over 3 images" in lines[-1], out.stdout[-2000:]
+        n_det = int(lines[-1].split("detections: ")[1].split()[0])
+        assert n_det > 0, lines[-1]
+        print("CLI: {} -> exit 0 in {:.2f} s (a new process: imports, checkpoint load on the "
+              "card, 3 VGA images); {}".format(" ".join(command[1:]), wall,
+                                               lines[-1].split(" ", 1)[1]))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
 
 
 def _kernel_line(name, source, replaces, launches, m):
@@ -1609,6 +1996,13 @@ def main() -> int:
     flagship = phase_flagship(torch, device, frames, dense, kind, card)
     torch.cuda.empty_cache()
 
+    # ---- 19-21. the evaluation entry points, with the flagship ---------------
+    _build.build()  # every library up to date, so the CLI's process builds nothing
+    fddb_app = phase_fddb(torch, flagship["model"], kind, card)
+    torch.cuda.empty_cache()
+    phase_runtime(torch, flagship["model"], kind, card)
+    phase_cli(torch, flagship["model"])
+
     loaded = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "rapidobjectdetectionusingcascadedcnns_tpu")
@@ -1616,7 +2010,7 @@ def main() -> int:
     assert not loaded, "the port imported {}".format(loaded)
     print("chip_smoke: every phase passed in {:.1f} s".format(time.perf_counter() - started))
     print(card)
-    print(json.dumps({"kernels": [
+    kernels = [
         _kernel_line("K1 crop_and_resize (VGA path re-extraction)", "resample.cu",
                      "ops/windows_pallas.py:63", k1_vga_launches, k1_vga),
         _kernel_line("K1 crop_and_resize (dense path re-extraction)", "resample.cu",
@@ -1641,7 +2035,17 @@ def main() -> int:
                      "ops/windows_sched.py:259", flagship["k2_dense"], k2),
         _kernel_line("K4 row-bounded re-extraction (flagship, dense path, dyn_reextract)",
                      "rowbound.cu", "ops/windows_dyn.py:83", flagship["k4_dense"], k4),
-    ]}))
+        _kernel_line("K2 scheduled stage-0 extraction (flagship, FDDB app, one image a call)",
+                     "sched.cu", "ops/windows_sched.py:259", *fddb_app["k2"]),
+        _kernel_line("K1 crop_and_resize (flagship, FDDB app re-extraction)", "resample.cu",
+                     "ops/windows_pallas.py:63", *fddb_app["k1"]),
+    ]
+    if fddb_app["unscheduled"]:
+        kernels.append(_kernel_line(
+            "K1 crop_and_resize (flagship, FDDB app stage 0 at the unscheduled sizes {}, "
+            "{}-box chunks)".format(fddb_app["unscheduled"], fddb_app["chunk"]),
+            "resample.cu", "ops/windows_pallas.py:63", *fddb_app["k1_stage0"]))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -8,10 +8,13 @@ written for Hopper (``csrc/``), built with ``nvcc`` at first use.
 
 The port imports nothing of the JAX package and never imports jax: it
 keeps its own copies of the host-only modules it needs (``config``,
-``ops/pyramid``, ``ops/nms``, ``ops/rectangles``, ``native``,
-``utils/log``, ``data/synthetic``, ``data/image_io``). Its ``config`` is a
-configuration of its own. Entry points run on the CUDA card unless the
-caller asks for the CPU (``device="cpu"``).
+``ops/pyramid``, ``ops/nms``, ``ops/rectangles``, ``native``, ``utils/log``,
+``utils/time_watcher``, ``utils/console``, ``utils/file_handler``,
+``data/synthetic``, ``data/image_io``, ``data/file_list``, ``data/cache``,
+``data/imagenet_info``, ``data/fddb``, ``data/fddb_eval``). Its ``config``
+is a configuration of its own. Entry points (the apps, ``python -m
+rapidobjectdetectionusingcascadedcnns_torch.run``) run on the CUDA card
+unless the caller asks for the CPU (``device="cpu"``, ``--device cpu``).
 """
 
 from . import config  # noqa: F401

@@ -1,4 +1,5 @@
-"""Data helpers of the port: the synthetic scene generator and host image
-resizing, copied from the JAX package's ``data`` modules."""
+"""Data helpers of the port, copied from the JAX package's ``data`` modules:
+the synthetic scene generator, host image IO (``ImageInfo``), file
+discovery, the dataset cache and the FDDB fold IO and scorer."""
 
 from . import synthetic  # noqa: F401

@@ -157,3 +157,17 @@ def load_cascade(model_dir: str, session_key: str, device=None):
             "found {}".format(session_key, model_dir, len(params_list))
         )
     return CascadeModel(params_list, cfg_list, means, stds)
+
+
+def load_single(
+    model_dir: str, session_key: str, device=None
+) -> Tuple[Params, StageConfig, np.ndarray, np.ndarray, dict]:
+    """Load the single-net artifact ``model_<session_key>.npz`` (the JAX
+    package's ``checkpoint.load_single`` naming) onto ``device`` (default:
+    the CUDA card; ``"cpu"`` for the CPU). Returns (params, config, mean,
+    std, meta), as :func:`load_stage`."""
+    device = resolve_device(device)
+    path = os.path.join(model_dir, "model_{}.npz".format(session_key))
+    if not os.path.exists(path):
+        raise FileNotFoundError("Could not find the required model file: " + path)
+    return load_stage(path, device)

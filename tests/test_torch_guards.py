@@ -11,7 +11,11 @@ import pytest
 import torch
 
 from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+from rapidobjectdetectionusingcascadedcnns_torch import run as trun
 from rapidobjectdetectionusingcascadedcnns_torch import serve as tserve
+from rapidobjectdetectionusingcascadedcnns_torch.apps import evaluate_fddb as tfddb_app
+from rapidobjectdetectionusingcascadedcnns_torch.apps import evaluate_runtime as truntime
+from rapidobjectdetectionusingcascadedcnns_torch.apps import inference_apps as tapps
 from rapidobjectdetectionusingcascadedcnns_torch.models import bridge
 from rapidobjectdetectionusingcascadedcnns_torch.models import cascade as tcascade
 from rapidobjectdetectionusingcascadedcnns_torch.models import single as tsingle
@@ -27,10 +31,20 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "rapidobjectdetectionusingcascadedcnns_torch",
+    "rapidobjectdetectionusingcascadedcnns_torch.apps",
+    "rapidobjectdetectionusingcascadedcnns_torch.apps.base",
+    "rapidobjectdetectionusingcascadedcnns_torch.apps.evaluate_fddb",
+    "rapidobjectdetectionusingcascadedcnns_torch.apps.evaluate_runtime",
+    "rapidobjectdetectionusingcascadedcnns_torch.apps.inference_apps",
     "rapidobjectdetectionusingcascadedcnns_torch.config",
     "rapidobjectdetectionusingcascadedcnns_torch.data",
+    "rapidobjectdetectionusingcascadedcnns_torch.data.cache",
     "rapidobjectdetectionusingcascadedcnns_torch.data.dataset",
+    "rapidobjectdetectionusingcascadedcnns_torch.data.fddb",
+    "rapidobjectdetectionusingcascadedcnns_torch.data.fddb_eval",
+    "rapidobjectdetectionusingcascadedcnns_torch.data.file_list",
     "rapidobjectdetectionusingcascadedcnns_torch.data.image_io",
+    "rapidobjectdetectionusingcascadedcnns_torch.data.imagenet_info",
     "rapidobjectdetectionusingcascadedcnns_torch.data.preprocessor",
     "rapidobjectdetectionusingcascadedcnns_torch.data.synthetic",
     "rapidobjectdetectionusingcascadedcnns_torch.labels",
@@ -54,6 +68,7 @@ PORT_MODULES = [
     "rapidobjectdetectionusingcascadedcnns_torch.ops.windows_sched",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.windows_sched_cuda",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.windows_sched_precomp_cuda",
+    "rapidobjectdetectionusingcascadedcnns_torch.run",
     "rapidobjectdetectionusingcascadedcnns_torch.serve",
     "rapidobjectdetectionusingcascadedcnns_torch.train",
     "rapidobjectdetectionusingcascadedcnns_torch.train.cascade_trainer",
@@ -63,8 +78,11 @@ PORT_MODULES = [
     "rapidobjectdetectionusingcascadedcnns_torch.train.optimizer",
     "rapidobjectdetectionusingcascadedcnns_torch.train.train_step",
     "rapidobjectdetectionusingcascadedcnns_torch.train.trainer",
+    "rapidobjectdetectionusingcascadedcnns_torch.utils.console",
     "rapidobjectdetectionusingcascadedcnns_torch.utils.device",
+    "rapidobjectdetectionusingcascadedcnns_torch.utils.file_handler",
     "rapidobjectdetectionusingcascadedcnns_torch.utils.log",
+    "rapidobjectdetectionusingcascadedcnns_torch.utils.time_watcher",
 ]
 
 
@@ -206,14 +224,15 @@ def _tiny_model():
         (lambda m: ttrainer.SingleNetTrainer(None, mesh=object(), device="cpu"), "item 6"),
         (lambda m: ttrainer.SingleNetTrainer(None, use_inception=True, device="cpu"),
          "item 7"),
+        (lambda m: tapps.InferenceOCVApp(), "item 5b"),
     ],
     ids=["detector mesh", "bundle mesh", "window-sharded bundle", "cascade trainer mesh",
-         "trainer mesh", "trainer inception"],
+         "trainer mesh", "trainer inception", "viola-jones app"],
 )
 def test_unported_paths_raise(entry, what):
-    """Meshes (ROADMAP Queue A item 6) and the Inception backbone (item 7)
-    are not ported: the entry points that take one raise, naming the item,
-    rather than running without it."""
+    """Meshes (ROADMAP Queue A item 6), the Inception backbone (item 7) and
+    the Viola-Jones baseline app (item 5b) are not ported: the entry points
+    that take one raise, naming the item, rather than running without it."""
     with pytest.raises(NotImplementedError, match=what):
         entry(_tiny_model())
 
@@ -278,3 +297,86 @@ def test_resolve_resample_impl(settings, impl):
 def test_mesh_raises():
     with pytest.raises(NotImplementedError, match="item 6"):
         tcascade.CascadeDetector(_tiny_model(), mesh=object())
+
+
+def test_apps_and_cli_never_import_jax():
+    """The FDDB app (corpus, detection, scorer), the CLI's
+    ``inference-cascade`` run as ``__main__`` and the port's FDDB and
+    runtime tools, in a fresh interpreter on the CPU: neither jax nor any
+    module of the JAX package may be loaded."""
+    code = (
+        "import importlib, importlib.util, os, runpy, sys, tempfile\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
+        "for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "for name in ('fddb_torch_roc', 'runtime_torch_eval'):\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        name, os.path.join({repo!r}, 'tools', name + '.py'))\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "from rapidobjectdetectionusingcascadedcnns_torch import config as cf\n"
+        "from rapidobjectdetectionusingcascadedcnns_torch.apps import evaluate_fddb\n"
+        "from rapidobjectdetectionusingcascadedcnns_torch.data import fddb\n"
+        "from rapidobjectdetectionusingcascadedcnns_torch.models import cascade\n"
+        "from rapidobjectdetectionusingcascadedcnns_torch.train import checkpoint\n"
+        "d = tempfile.mkdtemp()\n"
+        "cf.set('conv_filter_sizes', [4]); cf.set('fc1_size', 8); cf.set('log_auto_save', False)\n"
+        "model = cascade.build_cascade_model(seed=0, device='cpu')\n"
+        "img_base, folds, _ = fddb.make_synthetic_corpus(d, n_folds=1, imgs_per_fold=1,\n"
+        "                                                sizes=((64, 80),))\n"
+        "for k, v in (('fddb_folds_dir', folds), ('fddb_img_base_dir', img_base),\n"
+        "             ('fddb_detection_output_dir', d + '/out'),\n"
+        "             ('fddb_latest_detection_output_dir', d + '/out/latest'),\n"
+        "             ('fddb_per_evaluation_script_path', d + '/missing.pl')):\n"
+        "    cf.set(k, v)\n"
+        "app = evaluate_fddb.EvaluateFDDBApp(model=model, n_folds=1, run_now=False, device='cpu')\n"
+        "cf.set('window_scale_factor', 1.5)\n"
+        "app.run()\n"
+        "assert app.roc is not None and app.roc['n_faces'] > 0\n"
+        "checkpoint.save_cascade(d + '/models', 'guard', model)\n"
+        "cf.set('output_graph_dir', d + '/models'); cf.set('default_evaluation_model_cascade', 'guard')\n"
+        "cf.set('dataset_native_path_root', d); cf.set('dataset_keys', ['images'])\n"
+        "cf.set('class_min_images', None)\n"
+        "sys.argv = ['run', 'inference-cascade', '--device', 'cpu']\n"
+        "runpy.run_module('rapidobjectdetectionusingcascadedcnns_torch.run', run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'rapidobjectdetectionusingcascadedcnns_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    ).format(mods=PORT_MODULES, repo=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "detections: " in out.stdout
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_apps_without_a_card_raise():
+    """Every app and every CLI command runs on the card unless given the
+    CPU: without a card they raise at once, and with ``device="cpu"`` they
+    run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    model = _tiny_model()
+    image = np.zeros((40, 48, 3), np.uint8)
+    app = tapps.InferenceCascadeApp(model=model, device="cpu")
+    assert app.detector.device.type == "cpu"
+    assert len(app.run_inference_on_images([image])) == 1
+    for make in (
+        lambda d: tapps.InferenceCascadeApp(model=model, device=d),
+        lambda d: tapps.InferenceApp("absent", device=d),
+        lambda d: tfddb_app.EvaluateFDDBApp(model=model, run_now=False, device=d),
+        lambda d: truntime.EvaluateRuntimeApp(images=[image], cascade_model=model,
+                                              run_now=False, device=d),
+    ):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make(None)
+        assert make("cpu") is not None
+    with pytest.raises(RuntimeError, match="is_available"):
+        truntime.EvaluateRuntimeApp(images=[image], cascade_model=model, run_now=False,
+                                    compare_platforms=["cuda", "cpu"])
+    for command in trun.COMMANDS:
+        with pytest.raises(RuntimeError, match="is_available"):
+            trun.main([command])
