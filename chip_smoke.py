@@ -134,7 +134,42 @@ Phases (each checked; any failure exits non-zero):
   21. the CLI: ``python -m rapidobjectdetectionusingcascadedcnns_torch.run
      inference-cascade`` in a subprocess, on the flagship saved as a
      checkpoint and 3 VGA images set by a ``rodc_local.py`` overlay: exit 0
-     and a detection count reported.
+     and a detection count reported;
+  22. dynamic-batch bundles: phase 18's flagship VGA YUV program exported
+     with ``batch="dynamic"`` and ``platforms=("cuda", "cpu")`` (1 rung:
+     no frame saturates the flagship's capacities, and a saturated frame
+     would be truncated there and differ from the live re-dispatch),
+     saved, loaded on the card and serving 1, 7, 16 and 23 frames, each
+     equal to the live detector (K1 and K3 counted around each call; the
+     stage CNNs' 16,384-row chunks straddle frames); then random weights at
+     the default capacities [640, 256] through a 5-rung dynamic bundle
+     that reaches [5061, 4096] over the 16 VGA frames: every
+     saturated frame re-run alone, as many re-runs as the live detector's
+     re-dispatches, results equal; the batch wall against the same programs
+     re-running each frame padded to 16 copies (a static bundle's re-runs);
+     then the flagship's program in crop mode (stage 0 through K2 over the
+     VGA plan's 6,048-slot schedule, whose tables are constants of the
+     program), dynamic and for ("cuda", "cpu"), saved, loaded on the card
+     and serving the 16 frames equal to the live crop-mode detector, with
+     exactly one K2, two K1 and one K3 launch a program call; K1 and K3
+     held against their plain versions on the 23-frame call's 7-frame
+     chunk and K2 on the crop-mode call's 16 frames;
+  23. the cross-device bundles: phase 22's gather-mode and crop-mode
+     bundles loaded on the CPU (programs moved there, no kernel launched)
+     over 2 frames each against the card's results, compared as
+     tools/cross_platform_torch_bundle.py compares them (matched detections
+     within 1 px and 0.05 confidence, each unmatched detection and each
+     scene out of tolerance with its survivor flips' stage probabilities
+     on both devices);
+  24. a short soak (tools/soak_torch_serving.py) of the live flagship
+     detector and of phase 22's bundle: 8 batches of the 16 VGA frames
+     each, latency drift, card memory after the warm-up and at the end,
+     detections identical across repeats;
+  25. tools/profile_torch_train.py's step times for the 12 / 24 / 48 px
+     stages and 48 px with augmentation (conv [32], fc1 512, batch 1200, 4
+     chained updates each) and its split of one update (augmentation,
+     forward with the loss, backward, optimizer), which must give
+     ``train_step``'s loss.
 
 Kernels against plain versions: at most 1e-4 of the values may differ, each
 by at most 1 (bit-exact is expected); K3's and K2p's outputs must be equal.
@@ -145,7 +180,9 @@ never called by the port; K3 has none. The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel with
 its launches on its path, error, times and bound (K1 once for each path,
 at that path's shapes; K2, K1's re-extraction and K1's stage 0 also for the
-FDDB app); the line before that is the card's name and power limit. Without CUDA the script prints a message
+FDDB app; K1 and K3 also for phase 22's dynamic bundle, K2 for its
+crop-mode bundle); the line before
+that is the card's name and power limit. Without CUDA the script prints a message
 to stderr and exits 2.
 """
 
@@ -154,6 +191,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -460,10 +498,10 @@ def _dense_images(torch, device, frames):
     return torch.as_tensor(np.stack(frames), device=device).float()
 
 
-def phase_k2(torch, device, frames):
-    """7. K2 against its plain version on every slot of the FDDB-density
-    schedule of the frames (4 of 450x450 on the dense path; one corpus
-    image in phase 19)."""
+def _k2_hold(torch, planes, plan, sched, label):
+    """K2 against its plain version on every slot of ``sched`` (the
+    schedule of ``plan``'s 12 px windows) over the frames' bf16
+    ``planes``: error, times, grid_sample's time and the bound."""
     import numpy as np
     from rapidobjectdetectionusingcascadedcnns_torch.ops import (
         pyramid,
@@ -472,14 +510,9 @@ def phase_k2(torch, device, frames):
         windows_sched_cuda,
     )
 
-    hw = frames[0].shape[:2]
-    plan = pyramid.build_plan(*hw, 12, 12, 0.075, DENSE_WSF)
-    sched = windows_sched.schedule_for_plan(plan, 12, 12)
-    assert sched is not None and (hw != DENSE_HW or plan.n_windows == DENSE_WINDOWS)
+    device, hw = planes.device, tuple(planes.shape[2:])
     boxes = torch.as_tensor(pyramid.window_table(plan)["boxes_float"], device=device)
-    images = _dense_images(torch, device, frames)
     sy, sx, tiles = windows_sched.scheduled_positions(boxes, sched, device)
-    planes = windows.to_planes_bf16(images)
 
     def kernel():
         return windows_sched_cuda.resample_sched_cuda(planes, sy, sx, tiles, sched.tile)
@@ -490,31 +523,46 @@ def phase_k2(torch, device, frames):
     got = kernel()
     ref = plain()
     torch.cuda.synchronize()
-    n_bad, total, err = _compare(got, ref, "K2")
+    n_bad, total, err = _compare(got, ref, "K2 " + label)
     del ref
     ms = _median_ms(kernel, torch)
     pms = _median_ms(plain, torch, warmup=1, iters=5, reps=1)
     # the yardstick samples every slot at its global positions
     order = sched.device_tables(device)[0]
     gsy, gsx = windows.sample_positions(boxes, *hw, 12, 12)
-    lib_ms = _grid_sample_ms(torch, planes, gsy[order].expand(len(frames), -1, -1),
-                             gsx[order].expand(len(frames), -1, -1))
+    n_frames = planes.shape[0]
+    lib_ms = _grid_sample_ms(torch, planes, gsy[order].expand(n_frames, -1, -1),
+                             gsx[order].expand(n_frames, -1, -1))
     bound_ms, bound_by = _bound((planes, sy, sx, tiles), (got,), got.numel())
     smem, budget = windows_sched_cuda.launch_geometry(sched.tile, 12, 12, planes.shape[1])
     staged = windows_sched_cuda.staging_bytes(sy, sx, tiles, sched.tile, planes.shape[1], *hw)
     n_direct = int(((staged < 0) | (staged > budget)).sum())
-    print("K2 {} frames {}x{} wsf {}: n_slots {} for {} windows in {} classes {}; "
+    print("K2 ({}) {} frames {}x{}: n_slots {} for {} windows in {} classes {}; "
           "{} of {} values differ (max {}), kernel {:.4f} ms, plain {:.4f} ms, grid_sample "
           "{:.4f} ms, bound {:.4f} ms ({}), {:.1%} of the bound reached; {} B shared a "
           "block, staging budget {} B, staged support per tile median {:.0f} B max {} B, "
           "{} of {} tiles over the budget (sampled from the planes)".format(
-              len(frames), hw[0], hw[1], DENSE_WSF, sched.n_slots,
+              label, n_frames, hw[0], hw[1], sched.n_slots,
               plan.n_windows, len(sched.classes),
               [(c.cell_r, c.cell_c, c.n_tiles) for c in sched.classes],
               n_bad, total, err, ms, pms, lib_ms, bound_ms, bound_by, bound_ms / ms, smem,
               budget, float(np.median(staged)), int(staged.max()), n_direct, sched.n_tiles))
     return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def phase_k2(torch, device, frames):
+    """7. K2 against its plain version on every slot of the FDDB-density
+    schedule of the frames (4 of 450x450 on the dense path; one corpus
+    image in phase 19)."""
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import pyramid, windows, windows_sched
+
+    hw = frames[0].shape[:2]
+    plan = pyramid.build_plan(*hw, 12, 12, 0.075, DENSE_WSF)
+    sched = windows_sched.schedule_for_plan(plan, 12, 12)
+    assert sched is not None and (hw != DENSE_HW or plan.n_windows == DENSE_WINDOWS)
+    planes = windows.to_planes_bf16(_dense_images(torch, device, frames))
+    return _k2_hold(torch, planes, plan, sched, "wsf {}".format(DENSE_WSF))
 
 
 def phase_k4(torch, device, frames):
@@ -1887,6 +1935,345 @@ def phase_cli(torch, model):
 
 
 
+DYN_FRAME_COUNTS = (1, 7, 16, 23)  # frames served by one loaded dynamic program
+LADDER_RUNGS = 5  # [640, 256] .. [5061, 4096]: the rungs phase 4's frames climb
+CROSS_FRAMES = 2  # the cross-device bundle's CPU leg
+SOAK_FRAMES = 128  # a short soak: 8 batches of the 16 VGA frames, each path
+TRAIN_STEPS = 4  # chained updates a stage in phase 25
+
+
+def _flagship_settings(cf):
+    """Phase 18's recipe and operating point on ``cf``, with the device NMS
+    tail on (the bundles' tail)."""
+    tool = _load_tool("train_torch_flagship")
+    tool.flagship_config(cf)
+    _quietly(tool.apply_recorded_overrides, cf)
+    cf.set("foreground_confidence_threshold", FLAG_THRESHOLD)
+    cf.set("nms_opencv_min_neighbors", FLAG_MIN_NEIGHBORS)
+    cf.set("nms_on_device", True)
+
+
+def _spy_dispatches(served_det):
+    """Record ``(rung, frames)`` of every program call of ``served_det``."""
+    calls = []
+    dispatch = served_det._dispatch_rung
+
+    def spy(rung, frames):
+        calls.append((rung, len(frames)))
+        return dispatch(rung, frames)
+
+    served_det._dispatch_rung = spy
+    return calls
+
+
+def _dynamic_flagship(torch, model, caps, work, kind, card):
+    """22a. The flagship's VGA YUV program with a dynamic frame count,
+    exported for ("cuda", "cpu") into ``work``, loaded on the card and
+    serving 1, 7, 16 and 23 frames, each equal to the live detector."""
+    from rapidobjectdetectionusingcascadedcnns_torch import serve
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+
+    windows_cuda, windows_sched_cuda, windows_dyn_cuda, nms_cuda = _kernel_modules()
+    same = _load_tool("serve_torch_bundle_check").same_detections
+    frames = vga_frames(max(DYN_FRAME_COUNTS))
+    live_det = cascade.CascadeDetector(model, capacity_schedule=caps)
+    t0 = time.perf_counter()
+    bundle = serve.export_detector(model, IMG_H, IMG_W, batch="dynamic", yuv=True,
+                                   capacities=caps, n_rungs=1, platforms=("cuda", "cpu"))
+    export_s = time.perf_counter() - t0
+    assert bundle.meta["batch"] == "dynamic" and bundle.meta["chunk_hint"] == N_FRAMES
+    t0 = time.perf_counter()
+    serve.save_bundle(bundle, work)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served_det = serve.load_bundle(work)
+    load_s = time.perf_counter() - t0
+    _quietly(served_det.detect_batch, frames[:N_FRAMES])  # warm-up
+    served = {}
+    for n in DYN_FRAME_COUNTS:
+        live = _quietly(live_det.detect_batch_yuv420, frames[:n])
+        torch.cuda.synchronize()
+        _reset_launches()
+        calls = _spy_dispatches(served_det)
+        t0 = time.perf_counter()
+        served[n] = _quietly(served_det.detect_batch, frames[:n])
+        wall = time.perf_counter() - t0
+        del served_det._dispatch_rung
+        bad = [i for i, (a, b) in enumerate(zip(live, served[n])) if not same(a, b)]
+        assert len(served[n]) == n and not bad, ("dynamic bundle vs live", n, bad)
+        k1, k3 = windows_cuda.LAUNCHES, nms_cuda.LAUNCHES
+        # each program call: K1 for the two re-extractions, K3 for the tail
+        assert k1 == 2 * len(calls) and k3 == len(calls), (n, calls, k1, k3)
+        assert windows_sched_cuda.LAUNCHES == windows_dyn_cuda.LAUNCHES == 0
+        print("dynamic bundle (flagship, capacities {}): {} frames served in {:.4f} s by program "
+              "calls {} (rung, frames); equal to the live detector on every frame; K1 {} K3 {} "
+              "launches".format(caps, n, wall, calls, k1, k3))
+        if n == max(DYN_FRAME_COUNTS):
+            launches = (k1, k3)
+    print("dynamic bundle: export {:.2f} s ({} rungs, up to {} frames a call), save {:.2f} s, "
+          "load {:.2f} s, on {} [{}]".format(export_s, len(bundle.meta["capacity_rungs"]),
+                                            bundle.meta["max_batch"], save_s, load_s, kind, card))
+    # K1 and K3 against their plain versions on the last program call's
+    # inputs (the 7 frames after the first 16-frame chunk)
+    tail = frames[N_FRAMES:max(DYN_FRAME_COUNTS)]
+    label = "flagship dynamic bundle, {}-frame chunk".format(len(tail))
+    k1 = phase_k1(torch, label, *vga_k1_inputs(torch, torch.device("cuda"), live_det, tail),
+                  {24: caps[0], 48: caps[1]})
+    k3 = _k3_case(torch, *_k3_inputs(torch, live_det, tail, caps), label, call_counts=False)
+    return {"detector": served_det, "served": served, "frames": frames,
+            "k1": (launches[0], k1), "k3": (launches[1], k3)}
+
+
+def _crop_flagship(torch, model, caps, frames, work, kind, card):
+    """22c. The flagship's VGA YUV program in crop mode (stage 0 through
+    K2 over the plan's schedule, the schedule's tables constants of the
+    program) with a dynamic frame count, exported for ("cuda", "cpu") into
+    ``work``, loaded on the card and serving ``frames`` (the 16 VGA
+    frames), equal to the live crop-mode detector. Returns the loaded detector's results,
+    K2's launches in that call and K2 held against its plain version on
+    the call's inputs."""
+    from rapidobjectdetectionusingcascadedcnns_torch import serve
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+
+    windows_cuda, windows_sched_cuda, windows_dyn_cuda, nms_cuda = _kernel_modules()
+    same = _load_tool("serve_torch_bundle_check").same_detections
+    live_det = cascade.CascadeDetector(model, capacity_schedule=caps)
+    plan = live_det._plan_and_table(IMG_H, IMG_W)[0]
+    sched = cascade._stage0_schedule(plan, model.input_sizes[0], "pallas2", False)
+    assert sched is not None
+    t0 = time.perf_counter()
+    bundle = serve.export_detector(model, IMG_H, IMG_W, batch="dynamic", yuv=True,
+                                   capacities=caps, n_rungs=1, platforms=("cuda", "cpu"))
+    export_s = time.perf_counter() - t0
+    assert bundle.meta["extraction_mode"] == "crop", bundle.meta["extraction_mode"]
+    targets = [str(n.target) for n in bundle.programs[0].graph.nodes if n.op == "call_function"]
+    assert targets.count("rodc.sched.default") == 1, targets.count("rodc.sched.default")
+    serve.save_bundle(bundle, work)
+    del bundle
+    served_det = serve.load_bundle(work)
+    live = _quietly(live_det.detect_batch_yuv420, frames)
+    _quietly(served_det.detect_batch, frames)  # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    calls = _spy_dispatches(served_det)
+    t0 = time.perf_counter()
+    served = _quietly(served_det.detect_batch, frames)
+    wall = time.perf_counter() - t0
+    del served_det._dispatch_rung
+    k1, k2, k3 = windows_cuda.LAUNCHES, windows_sched_cuda.LAUNCHES, nms_cuda.LAUNCHES
+    # each program call: K2 for stage 0, K1 for the two re-extractions, K3
+    # for the tail
+    assert k2 == len(calls) and k1 == 2 * len(calls) and k3 == len(calls), (calls, k1, k2, k3)
+    assert windows_dyn_cuda.LAUNCHES == 0
+    bad = [i for i, (a, b) in enumerate(zip(live, served)) if not same(a, b)]
+    assert not bad, ("crop-mode bundle vs live", bad)
+    print("crop-mode dynamic bundle (flagship, capacities {}, {} scheduled slots for {} "
+          "windows): {} frames served in {:.4f} s by program calls {} (rung, frames); equal "
+          "to the live crop-mode detector on every frame; K2 {} K1 {} K3 {} launches; export "
+          "{:.2f} s; on {} [{}]".format(caps, sched.n_slots, plan.n_windows, len(frames), wall,
+                                        calls, k2, k1, k3, export_s, kind, card))
+    planes, _ = vga_k1_inputs(torch, torch.device("cuda"), live_det, frames)
+    k2m = _k2_hold(torch, planes, plan, sched, "flagship crop-mode dynamic bundle, VGA")
+    return {"served": served, "frames": frames, "k2": (k2, k2m)}
+
+
+def _ladder_walk(torch, device, frames, kind, card):
+    """22b. Random weights at the default capacities through a dynamic
+    bundle whose ladder reaches the rung phase 4's frames end on: the
+    served batch re-runs each saturated frame alone at each rung, as the
+    live detector re-dispatches it, with equal results. Then the same
+    programs re-run each frame padded to 16 copies, as a static bundle
+    does."""
+    from rapidobjectdetectionusingcascadedcnns_torch import serve
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+
+    same = _load_tool("serve_torch_bundle_check").same_detections
+    model = cascade.build_cascade_model(seed=0, device=device)
+    live_det = cascade.CascadeDetector(model)
+    live = _quietly(live_det.detect_batch_yuv420, frames)
+    t0 = time.perf_counter()
+    bundle = serve.export_detector(model, IMG_H, IMG_W, batch="dynamic", yuv=True,
+                                   n_rungs=LADDER_RUNGS)
+    export_s = time.perf_counter() - t0
+    rungs = bundle.meta["capacity_rungs"]
+    assert rungs[-1] == OPEN_CAPS, rungs
+    served_det = serve.ServingDetector(bundle, device)
+    _quietly(served_det.detect_batch, frames)  # warm-up
+    live_det.redispatches = 0
+    live = _quietly(live_det.detect_batch_yuv420, frames)
+    calls = _spy_dispatches(served_det)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = _quietly(served_det.detect_batch, frames)
+    dynamic_s = time.perf_counter() - t0
+    del served_det._dispatch_rung
+    reruns = [c for c in calls if c[0] > 0]
+    assert reruns and all(n == 1 for _, n in reruns), calls
+    assert len(reruns) == live_det.redispatches, (len(reruns), live_det.redispatches)
+    bad = [i for i, (a, b) in enumerate(zip(live, served)) if not same(a, b)]
+    assert not bad, ("ladder walk vs the live re-dispatch", bad)
+    # the static bundle's re-runs: the same programs, each frame padded to 16
+    served_det.meta = dict(served_det.meta, batch=N_FRAMES)
+    calls = _spy_dispatches(served_det)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    padded = _quietly(served_det.detect_batch, frames)
+    padded_s = time.perf_counter() - t0
+    del served_det._dispatch_rung
+    assert all(n == N_FRAMES for _, n in calls), calls
+    flips = [len(set(a.raw_window_ids.tolist()) ^ set(b.raw_window_ids.tolist()))
+             for a, b in zip(live, padded)]
+    print("ladder walk (random weights, rungs {}): {} re-runs, each of 1 frame, as the live "
+          "detector's {} re-dispatches; served equal to the live detector on all {} frames; "
+          "batch {:.4f} s with single-frame re-runs against {:.4f} s with the re-runs padded to "
+          "{} frames (a static bundle's), whose survivors differ from the live ones by {} "
+          "windows a frame; export {:.2f} s; on {} [{}]".format(
+              rungs, len(reruns), live_det.redispatches, len(frames), dynamic_s, padded_s,
+              N_FRAMES, flips, export_s, kind, card))
+
+
+def phase_dynamic_bundle(torch, device, flagship, frames, work, kind, card):
+    """22. Dynamic-batch bundles: the flagship's (22a, saved in
+    ``work["gather"]``), a ladder walk with random weights (22b), and the
+    flagship's in crop mode (22c, saved in ``work["crop"]``). Returns 22a's
+    loaded detector, served results, frames and K1/K3 launches and
+    measurements, and 22c's under ``"crop"``."""
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+
+    saved = cf.snapshot()
+    try:
+        t0 = time.perf_counter()
+        _flagship_settings(cf)
+        out = _dynamic_flagship(torch, flagship["model"], flagship["caps"], work["gather"],
+                                kind, card)
+        cf.restore(saved)
+        cf.set("nms_on_device", True)
+        torch.cuda.empty_cache()
+        _ladder_walk(torch, device, frames, kind, card)
+        cf.restore(saved)
+        torch.cuda.empty_cache()
+        _flagship_settings(cf)
+        cf.set("window_extraction_mode", "crop")
+        out["crop"] = _crop_flagship(torch, flagship["model"], flagship["caps"], frames,
+                                     work["crop"], kind, card)
+        print("phase 22: {:.1f} s".format(time.perf_counter() - t0))
+    finally:
+        cf.restore(saved)
+    return out
+
+
+def phase_cross_device(torch, flagship, dynamic, work, kind, card):
+    """23. Phase 22's ("cuda", "cpu") bundles, gather mode (22a) and crop
+    mode (22c), loaded on the CPU (their programs moved there, the
+    operators' plain versions running) over 2 frames each, against the
+    card's results for them: matched detections within 1 px and 0.05
+    confidence, every unmatched detection with its survivor flips' stage
+    probabilities on both devices."""
+    from rapidobjectdetectionusingcascadedcnns_torch import serve
+
+    tool = _load_tool("cross_platform_torch_bundle")
+    windows_cuda, windows_sched_cuda, _, nms_cuda = _kernel_modules()
+    model = flagship["model"]
+    cpu_model = model.to("cpu")
+    t_phase = time.perf_counter()
+    for mode, card_results, frames in (
+            ("gather", dynamic["served"][N_FRAMES], dynamic["frames"]),
+            ("crop", dynamic["crop"]["served"], dynamic["crop"]["frames"])):
+        card_results = card_results[:CROSS_FRAMES]
+        cpu_det = serve.load_bundle(work[mode], device="cpu")
+        assert cpu_det.meta["extraction_mode"] == mode, cpu_det.meta["extraction_mode"]
+        _reset_launches()
+        t0 = time.perf_counter()
+        cpu_results = _quietly(cpu_det.detect_batch, frames[:CROSS_FRAMES])
+        cpu_s = time.perf_counter() - t0
+        # the plain versions
+        assert windows_cuda.LAUNCHES == windows_sched_cuda.LAUNCHES == nms_cuda.LAUNCHES == 0
+        meta = cpu_det.meta
+        probes = {"card": {}, "cpu": {}}
+        for i, (a, b) in enumerate(zip(card_results, cpu_results)):
+            ids = set(a.raw_window_ids.tolist()) ^ set(b.raw_window_ids.tolist())
+            probes["card"][i] = tool.stage_probabilities(model, frames[i], ids, meta,
+                                                         model.device)
+            probes["cpu"][i] = tool.stage_probabilities(cpu_model, frames[i], ids, meta,
+                                                        cpu_model.device)
+        cmp = tool.compare_detections(tool.jsonable(card_results), tool.jsonable(cpu_results),
+                                      meta["thresholds"], probes)
+        print("cross-device bundle ({} mode): {} frames on the CPU in {:.2f} s (no kernel "
+              "launched); card {} and CPU {} detections; max matched box delta {} px, "
+              "confidence delta {:.3g}; survivor flips per frame {}; on {} [{}]".format(
+                  mode, CROSS_FRAMES, cpu_s, [len(r.boxes) for r in card_results],
+                  [len(r.boxes) for r in cpu_results], cmp["max_box_delta"],
+                  cmp["max_conf_delta"], [sc["survivor_flips"] for sc in cmp["scenes"]], kind,
+                  card))
+        for u in cmp["unmatched"]:
+            print("cross-device bundle ({} mode): unmatched".format(mode), json.dumps(u))
+        for sc in cmp["scenes"]:
+            if not sc["ok"]:
+                print("cross-device bundle ({} mode): scene out of tolerance".format(mode),
+                      json.dumps(sc))
+        assert cmp["ok"], (mode, cmp)
+    print("phase 23: {:.1f} s".format(time.perf_counter() - t_phase))
+
+
+def phase_soak(torch, flagship, dynamic, frames, kind, card):
+    """24. A short soak of the live detector and of phase 22's bundle:
+    latency drift, card memory after the warm-up and at the end, and
+    detections identical across repeats of the same frames."""
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+
+    tool = _load_tool("soak_torch_serving")
+    saved = cf.snapshot()
+    try:
+        _flagship_settings(cf)
+        live = cascade.CascadeDetector(flagship["model"], capacity_schedule=flagship["caps"])
+        for name, detect in (("live detector", live.detect_batch_yuv420),
+                             ("dynamic bundle", dynamic["detector"].detect_batch)):
+            r = _quietly(tool.soak, detect, frames, SOAK_FRAMES, N_FRAMES,
+                         torch.device("cuda"))
+            warm, end = r["memory_after_warmup"], r["memory_at_end"]
+            print("soak, {}: {} frames in {} batches, {:.2f} frames/s, batch median {:.3f} ms "
+                  "(p95 {:.3f}), latency drift {:+.2f}% (last quarter {:.3f} ms against first "
+                  "{:.3f} ms); card memory allocated {} -> {} B, peak {} -> {} B; detection "
+                  "drift {}; on {} [{}]".format(
+                      name, r["n_frames"], r["n_batches"], r["fps"], r["batch_ms_median"],
+                      r["batch_ms_p95"], r["latency_drift_pct"],
+                      r["batch_ms_last_quarter_median"], r["batch_ms_first_quarter_median"],
+                      warm["allocated"], end["allocated"], warm["max_allocated"],
+                      end["max_allocated"], r["detection_drift_count"], kind, card))
+            assert r["detection_drift_count"] == 0, (name, r)
+            assert end["allocated"] <= warm["allocated"] + (64 << 20), (name, warm, end)
+    finally:
+        cf.restore(saved)
+
+
+def phase_train_profile(torch, device, kind, card):
+    """25. tools/profile_torch_train.py's step times per stage, cut to a
+    few chained updates, and its split of one update."""
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+
+    tool = _load_tool("profile_torch_train")
+    saved = cf.snapshot()
+    try:
+        cf.reset()
+        tool.profile_config(cf)
+        batch = int(cf.get("batch_size"))
+        for r in tool.step_times(device, batch, steps=TRAIN_STEPS):
+            assert r["ms_per_step"] > 0, r
+            print("train step, {} px{}: {:.4f} ms a step, {:.0f} samples/s over {} chained "
+                  "updates of batch {}, on {} [{}]".format(
+                      r["size"], " with augmentation" if r["augment"] else "",
+                      r["ms_per_step"], r["samples_per_s"], r["steps"], batch, kind, card))
+        split = tool.update_split(device, batch)
+        assert split["same_loss"], split
+        print("train update split (48 px with augmentation, batch {}): {}; total {:.4f} ms, {} "
+              "launches in all; on {} [{}]".format(batch, json.dumps(split["parts"]),
+                                                  split["total_ms"], split["launches"], kind,
+                                                  card))
+    finally:
+        cf.restore(saved)
+
+
 def _kernel_line(name, source, replaces, launches, m):
     return {
         "name": name,
@@ -2003,6 +2390,23 @@ def main() -> int:
     phase_runtime(torch, flagship["model"], kind, card)
     phase_cli(torch, flagship["model"])
 
+    # ---- 22-25. the rest of serving, and a training-step profile ------------
+    root = tempfile.mkdtemp(prefix="chip_smoke_bundle_")
+    work = {mode: "{}/{}".format(root, mode) for mode in ("gather", "crop")}
+    try:
+        torch.cuda.empty_cache()
+        dynamic = phase_dynamic_bundle(torch, device, flagship, frames, work, kind, card)
+        phase_cross_device(torch, flagship, dynamic, work, kind, card)
+        t0 = time.perf_counter()
+        phase_soak(torch, flagship, dynamic, frames, kind, card)
+        print("phase 24: {:.1f} s".format(time.perf_counter() - t0))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_train_profile(torch, device, kind, card)
+    print("phase 25: {:.1f} s".format(time.perf_counter() - t0))
+
     loaded = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "rapidobjectdetectionusingcascadedcnns_tpu")
@@ -2039,6 +2443,19 @@ def main() -> int:
                      "sched.cu", "ops/windows_sched.py:259", *fddb_app["k2"]),
         _kernel_line("K1 crop_and_resize (flagship, FDDB app re-extraction)", "resample.cu",
                      "ops/windows_pallas.py:63", *fddb_app["k1"]),
+    ]
+    kernels += [
+        _kernel_line("K1 crop_and_resize (flagship, dynamic bundle, {} frames; measured on "
+                     "its {}-frame chunk)".format(max(DYN_FRAME_COUNTS),
+                                                  max(DYN_FRAME_COUNTS) - N_FRAMES),
+                     "resample.cu", "ops/windows_pallas.py:63", *dynamic["k1"]),
+        _kernel_line("K3 groupRectangles clustering (flagship, dynamic bundle, {} frames; "
+                     "measured on its {}-frame chunk)".format(max(DYN_FRAME_COUNTS),
+                                                             max(DYN_FRAME_COUNTS) - N_FRAMES),
+                     "cluster.cu", "ops/nms_pallas.py:33", *dynamic["k3"]),
+        _kernel_line("K2 scheduled stage-0 extraction (flagship, crop-mode dynamic bundle, {} "
+                     "VGA frames)".format(N_FRAMES), "sched.cu", "ops/windows_sched.py:259",
+                     *dynamic["crop"]["k2"]),
     ]
     if fddb_app["unscheduled"]:
         kernels.append(_kernel_line(

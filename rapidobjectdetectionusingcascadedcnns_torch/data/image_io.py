@@ -13,12 +13,15 @@ import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+from PIL import Image as PILImage
 
 from ..labels import Label
 
 
-# what PIL raises on a missing, unreadable or corrupt image file
-DECODE_ERRORS = (OSError, ValueError, SyntaxError)
+# what PIL raises on a missing, unreadable, corrupt or oversized image file
+# (DecompressionBombError, over 2 x Image.MAX_IMAGE_PIXELS, derives from
+# Exception only)
+DECODE_ERRORS = (OSError, ValueError, SyntaxError, PILImage.DecompressionBombError)
 
 
 def load_rgb(path: str) -> np.ndarray:

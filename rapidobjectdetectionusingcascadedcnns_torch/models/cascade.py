@@ -236,7 +236,10 @@ def _compact_indices(alive: torch.Tensor, p_fg: torch.Tensor, cap: int, compacti
 def _apply_stage_rows(params, cfg, x, bneck_in, mean, std, chunk: int):
     """Standardize (R, s, s, C) windows (any float dtype) and run the stage
     CNN over row chunks of at most ``chunk`` (bounds the conv
-    intermediates)."""
+    intermediates). A symbolic R (a frame count traced by ``torch.export``)
+    takes :func:`_apply_stage_rows_traced`, which cuts the same chunks."""
+    if isinstance(x.shape[0], torch.SymInt):
+        return _apply_stage_rows_traced(params, cfg, x, bneck_in, mean, std, chunk)
     probs, bnecks = [], []
     for s in range(0, x.shape[0], chunk):
         xc = (x[s : s + chunk].float() - mean) / std
@@ -245,6 +248,76 @@ def _apply_stage_rows(params, cfg, x, bneck_in, mean, std, chunk: int):
         probs.append(out["probs"])
         bnecks.append(out["bottleneck"])
     return torch.cat(probs), torch.cat(bnecks)
+
+
+def _apply_stage_rows_traced(params, cfg, x, bneck_in, mean, std, chunk: int):
+    """:func:`_apply_stage_rows` for a row count R that ``torch.export``
+    holds symbolic (frames x windows under a dynamic frame count).
+
+    The chunks are the eager loop's, rows [k * chunk, min((k + 1) * chunk,
+    R)), so each GEMM and convolution sees the row count the live detector
+    gives it (another row count can pick another cuBLAS kernel, and flip a
+    window at a gate). The graph holds one chunk for each ``chunk`` rows of
+    R's upper bound (the bounded ``torch.export.Dim`` of the frames); a
+    chunk's length is read on the host at run time (``item`` of a CPU
+    scalar: no device synchronisation; :func:`pin_host_scalars` keeps it on
+    the CPU when the program moves) and is 0 past R, where the CNN runs on
+    no rows. The rows are gathered and their outputs scattered back by
+    index, so no size depends on a sum of chunk lengths. (Lengths held as
+    symbolic expressions of R, with no tensor, trace under torch 2.13 but
+    not under 2.11, whose shape checks in the CNN guard on them.)"""
+    n_rows = x.shape[0]
+    upper = n_rows.node.shape_env.bound_sympy(n_rows.node.expr).upper
+    if not upper.is_finite:
+        raise ValueError(
+            "a symbolic frame count needs an upper bound: export it with "
+            "torch.export.Dim(..., max=...)"
+        )
+    n_left = torch.full((), n_rows, dtype=torch.int64, device="cpu")
+    probs = bnecks = None
+    for k in range(-(-int(upper) // chunk)):
+        length = torch.clamp(n_left - k * chunk, 0, chunk).item()
+        torch._check(length >= 0)
+        torch._check(length <= chunk)
+        idx = torch.arange(length, device=x.device) + k * chunk
+        xc = (x.index_select(0, idx).float() - mean) / std
+        bc = None if bneck_in is None else bneck_in.index_select(0, idx)
+        out = cnn.apply_stage(params, cfg, xc, bc)
+        if probs is None:
+            probs = out["probs"].new_empty((n_rows,) + tuple(out["probs"].shape[1:]))
+            bnecks = out["bottleneck"].new_empty((n_rows,) + tuple(out["bottleneck"].shape[1:]))
+        probs = probs.index_copy(0, idx, out["probs"])
+        bnecks = bnecks.index_copy(0, idx, out["bottleneck"])
+    return probs, bnecks
+
+
+def pin_host_scalars(graph) -> None:
+    """Put back on the CPU every tensor that an ``item`` call of an exported
+    program's ``graph`` reads (the chunk lengths of
+    :func:`_apply_stage_rows_traced`), after ``move_to_device_pass`` moved
+    the program's tensors to another device, so that reading them needs no
+    device synchronisation. Raises ``ValueError`` when such a tensor comes
+    from a program input or from an op that does not name its device."""
+    cpu = torch.device("cpu")
+    for node in graph.nodes:
+        if node.target is not torch.ops.aten.item.default:
+            continue
+        stack = [node.args[0]]
+        while stack:
+            arg = stack.pop()
+            val = arg.meta.get("val")
+            if not isinstance(val, torch.Tensor):
+                continue  # a symbolic size, such as the frame count
+            inputs = [a for a in arg.all_input_nodes
+                      if isinstance(a.meta.get("val"), torch.Tensor)]
+            if arg.op != "call_function" or (not inputs and "device" not in arg.kwargs):
+                raise ValueError(
+                    "{} reads {} ({}), which cannot be kept on the CPU".format(
+                        node.name, arg.name, arg.target))
+            if "device" in arg.kwargs:
+                arg.kwargs = {**arg.kwargs, "device": cpu}
+            arg.meta["val"] = val.to(cpu)
+            stack.extend(inputs)
 
 
 def _stage0_schedule(plan: PyramidPlan, size: int, resample_impl: str,

@@ -194,7 +194,7 @@ def apply_stage(
         h = h + layer["b"].to(cdt)[:, None, None]
         h = torch.relu(h)
         h = _max_pool_same(h, cfg.pooling_size, cfg.pooling_stride)
-    h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+    h = h.permute(0, 2, 3, 1).flatten(1)  # no inferred size: a traced row count may be 0
     fc1 = torch.matmul(h, params["fc1"]["W"].to(cdt)) + params["fc1"]["b"].to(cdt)
     fc1 = torch.relu(fc1).float()
 

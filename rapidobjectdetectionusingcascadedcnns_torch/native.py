@@ -1,15 +1,21 @@
 """ctypes bindings for the native host-runtime kernels (native/rodc_native.cc
 at the repository root), the port's copy of the JAX package's ``native.py``.
 
-The shared library is built on first use with the repo Makefile (g++ only,
-a plain C ABI bound with ctypes). All entry points return None when the
-toolchain or library is unavailable, and callers then use the numpy
-implementations, so the port never hard-depends on the native build.
+The shared library is built on first use by ``native/Makefile`` (g++, a
+plain C ABI bound with ctypes) into the port's own build directory,
+``_build/`` inside the package, named by a hash of the source, the Makefile
+and the host CPU: ``make`` is given the target's path, so it never writes the JAX package's ``native/librodc_native.so``. A build runs
+under a cross-process file lock into a temporary name that ``os.replace``
+moves into place, so no process sees a half-written library. Without a compiler
+every entry point returns None and callers use the numpy implementations
+(logged once); a library that was built and then fails to load raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import subprocess
 import threading
@@ -23,61 +29,95 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "librodc_native.so")
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+NATIVE_DIR = os.path.join(os.path.dirname(_PKG_DIR), "native")
+SOURCE = os.path.join(NATIVE_DIR, "rodc_native.cc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 
-def _build() -> bool:
+def _cpu_model() -> str:
+    """The host CPU's model name: ``-march=native`` code is built for it."""
     try:
-        subprocess.run(
-            ["make", "-C", _NATIVE_DIR],
-            check=True,
-            capture_output=True,
-            timeout=120,
-        )
-        return os.path.exists(_SO_PATH)
-    except Exception as exc:
-        log.log("native build unavailable: {}".format(exc))
-        return False
+        with open("/proc/cpuinfo") as f:
+            return next((line for line in f if line.startswith("model name")), "")
+    except OSError:
+        return ""
+
+
+def library_path(build_dir: str = BUILD_DIR) -> str:
+    """Where the library built from the current source, Makefile and host
+    CPU lives."""
+    digest = hashlib.sha256(_cpu_model().encode())
+    for path in (SOURCE, os.path.join(NATIVE_DIR, "Makefile")):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(build_dir, "librodc_native_{}.so".format(digest.hexdigest()[:16]))
+
+
+def build(build_dir: str = BUILD_DIR) -> Optional[str]:
+    """Build the library into ``build_dir`` unless it is there already;
+    returns its path, or None when the compiler is missing or fails."""
+    target = library_path(build_dir)
+    if os.path.exists(target):
+        return target
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, "native.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(target):  # another process built it meanwhile
+                return target
+            tmp = "{}.tmp{}".format(target, os.getpid())
+            try:
+                subprocess.run(
+                    ["make", "-s", "-C", NATIVE_DIR, "TARGET=" + os.path.abspath(tmp)],
+                    check=True, capture_output=True, timeout=120,
+                )
+            except (OSError, subprocess.SubprocessError) as exc:
+                log.log("native build unavailable ({}); host NMS runs its numpy "
+                        "version".format(exc))
+                return None
+            os.replace(tmp, target)
+            return target
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
-    """Load (building if necessary) the native library, or None."""
+    """Load (building if necessary) the native library, or None without a
+    compiler."""
     global _lib, _load_failed
     if _lib is not None or _load_failed:
         return _lib
     with _lock:
         if _lib is not None or _load_failed:
             return _lib
-        if not os.path.exists(_SO_PATH) and not _build():
+        path = build()
+        if path is None:
             _load_failed = True
             return None
-        try:
-            lib = ctypes.CDLL(_SO_PATH)
-            lib.rodc_group_rectangles.restype = ctypes.c_int32
-            lib.rodc_group_rectangles.argtypes = [
-                ctypes.POINTER(ctypes.c_double),
-                ctypes.c_int32,
-                ctypes.c_int32,
-                ctypes.c_double,
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_int64),
-            ]
-            lib.rodc_enumerate_pyramid.restype = ctypes.c_int32
-            lib.rodc_enumerate_pyramid.argtypes = [
-                ctypes.c_int32,
-                ctypes.c_int32,
-                ctypes.c_int32,
-                ctypes.c_int32,
-                ctypes.c_double,
-                ctypes.c_double,
-                ctypes.POINTER(ctypes.c_double),
-                ctypes.c_int32,
-            ]
-            _lib = lib
-        except OSError as exc:
-            log.log("native library load failed: {}".format(exc))
-            _load_failed = True
+        lib = ctypes.CDLL(path)
+        lib.rodc_group_rectangles.restype = ctypes.c_int32
+        lib.rodc_group_rectangles.argtypes = [
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int32,
+            ctypes.c_int32,
+            ctypes.c_double,
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib.rodc_enumerate_pyramid.restype = ctypes.c_int32
+        lib.rodc_enumerate_pyramid.argtypes = [
+            ctypes.c_int32,
+            ctypes.c_int32,
+            ctypes.c_int32,
+            ctypes.c_int32,
+            ctypes.c_double,
+            ctypes.c_double,
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int32,
+        ]
+        log.log("native host library loaded from {}".format(path))
+        _lib = lib
     return _lib
 
 

@@ -37,14 +37,16 @@ def rgb_to_yuv420(rgb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 def _up2(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Exact 2x bilinear upsample along ``dim`` (half-pixel convention,
     replicate edges): output 2k takes 0.25*x[k-1] + 0.75*x[k], output 2k+1
-    takes 0.75*x[k] + 0.25*x[k+1] -- the same lerps as the JAX ``_up2``."""
-    x = torch.movedim(x, dim, 0)
-    xm = torch.cat([x[:1], x[:-1]], dim=0)  # x[max(k-1, 0)]
-    xp = torch.cat([x[1:], x[-1:]], dim=0)  # x[min(k+1, n-1)]
+    takes 0.75*x[k] + 0.25*x[k+1] -- the same lerps as the JAX ``_up2``.
+    Every intermediate keeps the frames outermost and contiguous, so a
+    symbolic frame count enters no stride (``torch.export``)."""
+    dim = dim % x.dim()
+    n = x.shape[dim]
+    xm = torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, 0, n - 1)], dim=dim)  # x[max(k-1, 0)]
+    xp = torch.cat([x.narrow(dim, 1, n - 1), x.narrow(dim, n - 1, 1)], dim=dim)  # x[min(k+1, n-1)]
     even = 0.25 * xm + 0.75 * x
     odd = 0.75 * x + 0.25 * xp
-    out = torch.stack([even, odd], dim=1).reshape((2 * x.shape[0],) + x.shape[1:])
-    return torch.movedim(out, 0, dim)
+    return torch.stack([even, odd], dim=dim + 1).flatten(dim, dim + 1)
 
 
 def yuv420_to_rgb(y: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,10 @@ kernels as the live detector.
 
 Each op has a fake implementation (output shapes and dtypes, for tracing),
 a CUDA implementation that launches the kernel and a CPU implementation
-that is the kernel's plain version. K4 is not an op: its overflow policy
+that is the kernel's plain version. The fakes take every size from their
+inputs' shapes and make none a Python int, so they hold under the
+symbolic frame count of a dynamic-batch bundle; a program moved to
+another device dispatches each op to that device's implementation. K4 is not an op: its overflow policy
 lives on the host, and bundles refuse it.
 
 Importing this module registers the ops; a loader imports it before

@@ -16,6 +16,12 @@ script of the JAX package, each doing what its script does:
                      CPU alone
   loading-file-list  file discovery over ``dataset_keys``
                      (run_loading_file_list.py)
+  export-serving     MODEL_DIR SESSION_KEY OUT_DIR [--height 480] [--width
+                     640] [--batch N|dynamic] [--yuv] [--rungs 3]
+                     [--platform cuda,cpu]: a checkpointed cascade exported
+                     as a serving bundle (run_export_serving.py);
+                     ``--platform`` lists the device types the bundle may
+                     be loaded on (default: the export device's)
 
 Every command runs on the CUDA card unless given ``--device cpu``; without a
 card it raises. Settings come from the port's configuration, which a
@@ -34,6 +40,7 @@ from .utils.device import resolve_device
 COMMANDS = (
     "inference-cascade", "inference-single", "eval-fddb", "eval-runtime", "loading-file-list",
 )
+EXPORT_COMMAND = "export-serving"  # takes a checkpoint and an output directory
 
 
 def _inference(app) -> None:
@@ -45,18 +52,56 @@ def _inference(app) -> None:
         sum(len(r.boxes) for r in results), len(results)))
 
 
+def _export_serving(args, device) -> None:
+    from . import serve
+    from .models import bridge
+
+    log.set_echo(True)
+    model = bridge.load_cascade(args.model_dir, args.session_key, device=device)
+    batch = args.batch if args.batch in (None, "dynamic") else int(args.batch)
+    platforms = args.platform.split(",") if args.platform else None
+    bundle = serve.export_detector(
+        model, args.height, args.width, batch=batch, yuv=args.yuv, n_rungs=args.rungs,
+        platforms=platforms,
+    )
+    serve.save_bundle(bundle, args.out_dir)
+    log.log("exported serving bundle to {} ({} rungs, capacities {}, batch {}, platforms "
+            "{})".format(args.out_dir, len(bundle.meta["capacity_rungs"]),
+                         bundle.meta["capacity_rungs"][0], bundle.meta["batch"],
+                         bundle.meta["platforms"]))
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
+    common = argparse.ArgumentParser(add_help=False)
+    common.add_argument("--device", default=None,
+                        help="torch device to run on (default: the CUDA card; 'cpu')")
     parser = argparse.ArgumentParser(
         prog="python -m rapidobjectdetectionusingcascadedcnns_torch.run",
         description="Run one of the port's applications.",
     )
-    parser.add_argument("command", choices=COMMANDS)
-    parser.add_argument("--device", default=None,
-                        help="torch device to run on (default: the CUDA card; 'cpu')")
+    commands = parser.add_subparsers(dest="command", required=True, metavar="COMMAND")
+    for name in COMMANDS:
+        commands.add_parser(name, parents=[common])
+    export = commands.add_parser(EXPORT_COMMAND, parents=[common],
+                                 help="export a checkpointed cascade as a serving bundle")
+    export.add_argument("model_dir")
+    export.add_argument("session_key")
+    export.add_argument("out_dir")
+    export.add_argument("--height", type=int, default=480)
+    export.add_argument("--width", type=int, default=640)
+    export.add_argument("--batch", default=None,
+                        help="frames per program call (int), or 'dynamic'")
+    export.add_argument("--yuv", action="store_true", help="export the YUV420 program")
+    export.add_argument("--rungs", type=int, default=3, help="capacity rungs to ship")
+    export.add_argument("--platform", default=None,
+                        help="device types the bundle may run on, comma-separated "
+                             "(e.g. cuda,cpu); default: the export device's")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
 
-    if args.command in ("inference-cascade", "inference-single"):
+    if args.command == EXPORT_COMMAND:
+        _export_serving(args, device)
+    elif args.command in ("inference-cascade", "inference-single"):
         from .apps.inference_apps import InferenceApp, InferenceCascadeApp
 
         cf.set("dataset_path_root", cf.get("dataset_native_path_root"))

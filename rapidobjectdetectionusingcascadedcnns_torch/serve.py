@@ -24,20 +24,32 @@ Layout on disk (``save_bundle``)::
     <dir>/program_0.pt2    torch.export program at base capacities
     <dir>/program_1.pt2    ... first escalation rung, etc.
 
-Not ported yet, and raising ``NotImplementedError``: a dynamic batch and
-programs for another device than the export device (ROADMAP Queue A item
-3), meshes and window-sharded bundles (item 6).
+A bundle is exported once, on the model's device, with a static frame
+count or (``batch="dynamic"``) a bounded symbolic one: one program per rung
+then serves any number of frames up to the bound with no padding, and a
+saturated frame is re-run alone. ``platforms`` lists the device types the
+bundle may run on; a saved bundle holds its tensors on the CPU, and
+``load_bundle`` moves the programs to the device it is given
+(``torch.export.passes.move_to_device_pass``), where the custom
+operators dispatch by device: the CUDA kernels on the card, their plain
+versions on the CPU.
+
+Not ported yet, and raising ``NotImplementedError``: meshes and
+window-sharded bundles (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
+import warnings
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.export.passes import move_to_device_pass
 
 from . import config as cf
 from .models import cascade as casc
@@ -52,7 +64,7 @@ from .ops.windows import level_indices
 from .utils import log
 from .utils.device import resolve_device, set_numerics
 
-FORMAT_VERSION = 1
+FORMAT_VERSION = 2  # 2: dynamic batches, platforms and the export device
 PROGRAM_FORMAT = "torch.export"
 
 
@@ -232,12 +244,23 @@ class _YuvProgram(_CascadeProgram):
         return self.run(yuv420_to_rgb(y, uv), flat)
 
 
+PLATFORMS = ("cuda", "cpu")
+
+
+def _device_key(device: torch.device) -> str:
+    """The device as tensors on it print it ("cuda:0", "cpu"): the key
+    ``move_to_device_pass`` matches a program's devices by."""
+    if device.type == "cuda" and device.index is None:
+        return "cuda:{}".format(torch.cuda.current_device())
+    return str(device)
+
+
 def export_detector(
     model: CascadeModel,
     img_h: int,
     img_w: int,
     *,
-    batch: Optional[int] = None,
+    batch=None,
     yuv: bool = False,
     capacities: Optional[Sequence[int]] = None,
     n_rungs: int = 3,
@@ -251,29 +274,30 @@ def export_detector(
     Every config knob the program depends on is resolved here and recorded
     in the bundle's metadata. ``n_rungs``: how many capacity rungs to ship
     (rung 0 = base capacities; each next rung is one
-    ``escalate_capacities`` doubling). ``batch``: frames per program call
-    (default ``inference_batch_frames``). ``resample_impl``: "pallas2" (K2
+    ``escalate_capacities`` doubling). ``resample_impl``: "pallas2" (K2
     for a crop-mode stage 0, K1 for re-extraction) or "pallas" (K1 for
     both); default the configured choice. The row-bounded kernel K4
     ("pallas2dyn") needs the host's overflow re-dispatch and is refused.
 
-    ``batch="dynamic"``, ``platforms`` other than the model's device type
-    and ``mesh`` are not ported yet and raise ``NotImplementedError``."""
+    ``batch``: frames per program call (default
+    ``inference_batch_frames``), or ``"dynamic"``: a symbolic frame count
+    from 1 to ``max(2, inference_batch_frames)`` (the serving loop's chunk,
+    recorded as ``chunk_hint``), traced from an example of 2 frames so that
+    one frame is not special-cased. ``platforms``: the device types the
+    bundle may be loaded on, from ``PLATFORMS`` and including the model's
+    (default: the model's alone). ``mesh`` is not ported yet and raises
+    ``NotImplementedError``."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh: frame-sharded bundles are not ported yet (ROADMAP Queue A item 6)"
         )
-    if batch == "dynamic":
-        raise NotImplementedError(
-            'batch="dynamic": dynamic-batch bundles are not ported yet (ROADMAP Queue A item 3)'
-        )
     device = model.device
-    if platforms is not None and list(platforms) != [device.type]:
-        raise NotImplementedError(
-            "platforms={}: a bundle runs on its export device ({}) only; other "
-            "platforms are not ported yet (ROADMAP Queue A item 3)".format(
-                list(platforms), device.type
-            )
+    platforms = list(platforms) if platforms is not None else [device.type]
+    unknown = [p for p in platforms if p not in PLATFORMS]
+    if unknown or device.type not in platforms:
+        raise ValueError(
+            "platforms={}: list device types of {} that include the export "
+            "device's ({})".format(platforms, PLATFORMS, device.type)
         )
     if model.n_nets < 2:
         raise ValueError("a cascade must consist of at least two nets")
@@ -316,7 +340,13 @@ def export_detector(
         "nms_mn": nms_min_neighbors if nms_on_device else -1,
         "nms_eps": float(cf.get("nms_opencv_eps")),
     }
-    batch = int(batch or cf.get("inference_batch_frames"))
+    dynamic = batch == "dynamic"
+    chunk_hint = int(cf.get("inference_batch_frames"))
+    if dynamic:
+        max_batch = max(2, chunk_hint)
+        example_batch = 2
+    else:
+        max_batch = example_batch = chunk_hint = int(batch or chunk_hint)
 
     rungs = [list(base_caps)]
     while len(rungs) < max(1, n_rungs):
@@ -345,15 +375,22 @@ def export_detector(
     )
     if yuv:
         frames = (
-            torch.zeros(batch, img_h, img_w, dtype=torch.uint8, device=device),
-            torch.zeros(batch, img_h // 2, img_w // 2, 2, dtype=torch.uint8, device=device),
+            torch.zeros(example_batch, img_h, img_w, dtype=torch.uint8, device=device),
+            torch.zeros(example_batch, img_h // 2, img_w // 2, 2, dtype=torch.uint8,
+                        device=device),
         )
     else:
-        frames = (torch.zeros(batch, img_h, img_w, 3, dtype=torch.uint8, device=device),)
+        frames = (torch.zeros(example_batch, img_h, img_w, 3, dtype=torch.uint8, device=device),)
+    dynamic_shapes = None
+    if dynamic:
+        frames_dim = torch.export.Dim("frames", min=1, max=max_batch)
+        dynamic_shapes = tuple({0: frames_dim} for _ in frames) + ([None] * len(flat),)
     program_cls = _YuvProgram if yuv else _RgbProgram
     programs = []
     for caps in rungs:
-        program = torch.export.export(program_cls(tables, knobs, caps), (*frames, flat))
+        program = torch.export.export(
+            program_cls(tables, knobs, caps), (*frames, flat), dynamic_shapes=dynamic_shapes
+        )
         # a saved program keeps its example inputs, the weights among them:
         # drop them, so the weights are stored once, in weights.npz
         program.example_inputs = None
@@ -362,10 +399,12 @@ def export_detector(
         "format_version": FORMAT_VERSION,
         "program_format": PROGRAM_FORMAT,
         "device": device.type,
+        "export_device": _device_key(device),
         "img_h": img_h,
         "img_w": img_w,
-        "batch": batch,
-        "chunk_hint": batch,
+        "batch": "dynamic" if dynamic else max_batch,
+        "chunk_hint": chunk_hint,
+        "max_batch": max_batch,
         "yuv": yuv,
         "n_stages": n_stages,
         "size0": size0,
@@ -385,12 +424,22 @@ def export_detector(
         "nms_eps": knobs["nms_eps"],
         "vertically_enlarge": bool(cf.get("vertically_enlarge_bboxes")),
         "compute_dtype": str(model.stage_configs[0].compute_dtype).replace("torch.", ""),
-        "platforms": [device.type],
+        "platforms": platforms,
         "weight_dtypes": [str(w.dtype).replace("torch.", "") for w in flat],
         "nr_devices": 1,
         "mesh_axis": None,
     }
     return ServingBundle(meta=meta, weights=[w.detach() for w in flat], programs=programs)
+
+
+def _to_device(program: torch.export.ExportedProgram, src: str, dst: str):
+    """``move_to_device_pass`` of ``program`` from device ``src`` to
+    ``dst``, with the host scalars of a traced chunk loop kept on the CPU
+    (``models/cascade.pin_host_scalars``)."""
+    program = move_to_device_pass(program, {src: dst})
+    casc.pin_host_scalars(program.graph)
+    program.graph_module.recompile()
+    return program
 
 
 def export_window_sharded(*args, **kwargs) -> ServingBundle:
@@ -404,9 +453,10 @@ def export_window_sharded(*args, **kwargs) -> ServingBundle:
 
 def save_bundle(bundle: ServingBundle, dir_path: str) -> None:
     """Write ``meta.json``, ``weights.npz`` and one ``program_<rung>.pt2``
-    per capacity rung (``torch.export.save``). bfloat16 weights are stored
-    as uint16 views (npz has no bfloat16) and re-viewed on load per the
-    meta's ``weight_dtypes``."""
+    per capacity rung (``torch.export.save``), every tensor on the CPU (a
+    host without a card can read it; ``load_bundle`` moves it to its
+    device). bfloat16 weights are stored as uint16 views (npz has no
+    bfloat16) and re-viewed on load per the meta's ``weight_dtypes``."""
     os.makedirs(dir_path, exist_ok=True)
     with open(os.path.join(dir_path, "meta.json"), "w") as f:
         json.dump(bundle.meta, f, indent=1)
@@ -419,14 +469,22 @@ def save_bundle(bundle: ServingBundle, dir_path: str) -> None:
             arrays["w{}".format(i)] = w.numpy()
     np.savez(os.path.join(dir_path, "weights.npz"), **arrays)
     for i, program in enumerate(bundle.programs):
+        if bundle.meta["export_device"] != "cpu":
+            with warnings.catch_warnings():  # pytree's deprecation notes on deepcopy
+                warnings.simplefilter("ignore", FutureWarning)
+                program = copy.deepcopy(program)
+            program = _to_device(program, bundle.meta["export_device"], "cpu")
         torch.export.save(program, os.path.join(dir_path, "program_{}.pt2".format(i)))
 
 
 def load_bundle(dir_path: str, device=None) -> "ServingDetector":
     """Load a saved bundle into a ready :class:`ServingDetector` on
-    ``device`` (default: the CUDA card). No model and no config: the
-    artifact is self-contained. A bundle that is not a ``torch.export``
-    bundle (e.g. one of the JAX package) raises ``ValueError``."""
+    ``device`` (default: the CUDA card), which must be of a type the
+    bundle's ``platforms`` list; the saved programs (their tensors on the
+    CPU) are moved to it. No model and no config: the artifact is
+    self-contained. A bundle that is not a ``torch.export`` bundle (e.g.
+    one of the JAX package) or a device it does not list raises
+    ``ValueError``."""
     with open(os.path.join(dir_path, "meta.json")) as f:
         meta = json.load(f)
     if meta.get("program_format") != PROGRAM_FORMAT:
@@ -443,10 +501,11 @@ def load_bundle(dir_path: str, device=None) -> "ServingDetector":
             )
         )
     device = resolve_device(device)
-    if device.type != meta["device"]:
-        raise NotImplementedError(
-            "this bundle was exported for {}; running it on {} is not ported yet "
-            "(ROADMAP Queue A item 3)".format(meta["device"], device.type)
+    if device.type not in meta["platforms"]:
+        raise ValueError(
+            "this bundle lists platforms {}; it does not run on {}".format(
+                meta["platforms"], device.type
+            )
         )
     weights = []
     with np.load(os.path.join(dir_path, "weights.npz")) as z:
@@ -460,15 +519,20 @@ def load_bundle(dir_path: str, device=None) -> "ServingDetector":
         torch.export.load(os.path.join(dir_path, "program_{}.pt2".format(i)))
         for i in range(len(meta["capacity_rungs"]))
     ]
+    target = _device_key(device)
+    if target != "cpu":  # saved programs hold their tensors on the CPU
+        programs = [_to_device(p, "cpu", target) for p in programs]
     return ServingDetector(ServingBundle(meta=meta, weights=weights, programs=programs), device)
 
 
 class ServingDetector:
     """Serve detections from a bundle, with ``CascadeDetector.detect_batch``
     semantics for fixed-size frames: frames are chunked to the exported
-    batch (a short chunk is padded with its last frame), a saturated frame
-    walks the capacity ladder (re-run as a padded batch), and a top-rung
-    saturation warns once and keeps the truncated result."""
+    batch (``chunk_hint`` frames under a dynamic batch, unpadded; a static
+    batch pads a short chunk with its last frame), a saturated frame walks
+    the capacity ladder (re-run alone under a dynamic batch, as the live
+    detector re-dispatches it; as a padded batch under a static one), and
+    a top-rung saturation warns once and keeps the truncated result."""
 
     def __init__(self, bundle: ServingBundle, device=None):
         self.meta = m = bundle.meta
@@ -497,8 +561,9 @@ class ServingDetector:
         return frame.shape == (m["img_h"], m["img_w"], 3)
 
     def _dispatch_rung(self, rung: int, frames: List) -> torch.Tensor:
-        """One exported program over exactly ``batch`` frames; returns the
-        packed rows on the device (not yet synchronised)."""
+        """One exported program over ``frames`` (exactly ``batch`` of them
+        under a static batch); returns the packed rows on the device (not
+        yet synchronised)."""
         def upload(arrays):
             return torch.as_tensor(np.stack(arrays), device=self.device)
 
@@ -542,7 +607,11 @@ class ServingDetector:
                     "frame shape does not match the exported program "
                     "({}x{}, yuv={})".format(m["img_h"], m["img_w"], m["yuv"])
                 )
-        step = m["batch"]
+        dynamic = m["batch"] == "dynamic"
+        step = m["chunk_hint"]
+        # a saturated frame is re-run alone under a dynamic batch; a static
+        # program admits exactly one frame count
+        rerun_n = 1 if dynamic else step
         results: List[Optional[DetectionResult]] = [None] * len(frames)
         pending: List[Tuple[List[int], torch.Tensor]] = []
 
@@ -552,7 +621,7 @@ class ServingDetector:
                 result, rung = self._unpack(packed[j], 0), 0
                 while self._saturated(result, rung) and rung + 1 < len(self._modules):
                     rung += 1
-                    re_packed = self._dispatch_rung(rung, [frames[i]] * step).cpu().numpy()
+                    re_packed = self._dispatch_rung(rung, [frames[i]] * rerun_n).cpu().numpy()
                     result = self._unpack(re_packed[0], rung)
                 if self._saturated(result, rung) and not self._warned:
                     log.log(
@@ -566,7 +635,8 @@ class ServingDetector:
         for s in range(0, len(frames), step):
             chunk_idx = list(range(s, min(s + step, len(frames))))
             chunk = [frames[i] for i in chunk_idx]
-            chunk += [chunk[-1]] * (step - len(chunk))
+            if not dynamic:
+                chunk += [chunk[-1]] * (step - len(chunk))
             pending.append((chunk_idx, self._dispatch_rung(0, chunk)))
             if len(pending) > max(1, pipeline_depth):
                 finish(*pending.pop(0))

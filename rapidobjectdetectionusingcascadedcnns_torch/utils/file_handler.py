@@ -8,6 +8,7 @@ and ``open_file`` come with their first callers (ROADMAP Queue A item 5b).
 
 from __future__ import annotations
 
+import http.client
 import random
 from typing import Optional
 
@@ -31,7 +32,9 @@ def fetch_url(url: str, timeout: float = 10.0) -> Optional[bytes]:
         )
         with urllib.request.urlopen(req, timeout=timeout) as resp:
             return resp.read()
-    except (OSError, ValueError) as exc:  # URLError and timeouts are OSErrors
+    # URLError and timeouts are OSErrors; a truncated or garbled reply
+    # (IncompleteRead, BadStatusLine) is an HTTPException
+    except (OSError, ValueError, http.client.HTTPException) as exc:
         log.log("fetch_url failed for {}: {}".format(url, exc))
         return None
 

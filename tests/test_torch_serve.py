@@ -204,8 +204,9 @@ def test_port_bundle_matches_jax_bundle(rgb_bundle, jax_bundle):
     [
         ({"resample_impl": "pallas2dyn"}, ValueError, "overflow"),
         ({"resample_impl": "xla"}, ValueError, "pallas"),
-        ({"batch": "dynamic"}, NotImplementedError, "item 3"),
-        ({"platforms": ("cpu", "tpu")}, NotImplementedError, "item 3"),
+        ({"batch": "dynamic", "mesh": object()}, NotImplementedError, "item 6"),
+        ({"platforms": ("cpu", "tpu")}, ValueError, "tpu"),
+        ({"platforms": ("cuda",)}, ValueError, "export device"),
         ({"mesh": object()}, NotImplementedError, "item 6"),
     ],
 )
