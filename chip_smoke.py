@@ -170,6 +170,31 @@ Phases (each checked; any failure exits non-zero):
      chained updates each) and its split of one update (augmentation,
      forward with the loss, backward, optimizer), which must give
      ``train_step``'s loss.
+  26. the train apps through the CLI, each in a fresh process on the card
+     set up by a ``rodc_local.py`` overlay: a label-folder corpus of 1,000
+     face crops (``make_scene`` faces) and 2,000 ``draw_background``
+     patches written as PNGs, then ``python -m ...run train-cascade``
+     (the dataset built from the files at 12/24/48 px and cached as npz,
+     3 nets trained at the default widths, exported) and ``train-single``
+     (its 48 px dataset read from the cache); only ``epochs_total`` (50 ->
+     3) and the constant-prediction guard (off) are cut; exit 0, the cache
+     files, the checkpoints and ``final_results`` with the JAX package's
+     keys; host seconds of the dataset build per size and of each stage;
+  27. the visualizers in process: phase 26's checkpoint loaded on the card
+     by ``InferenceCascadeApp`` through ``InferenceVisualizerApp`` on 4 VGA
+     scenes (gather mode at 1.1, K1 re-extracts), K1 counted around the
+     visualizer's run and held against its plain version at this path's
+     capacities; each overlay equal to ``draw_detections`` of its boxes;
+     one scene again on the CPU (flips at most 2%, overlays equal where the
+     boxes are); then ``InferenceOCVApp`` (Viola-Jones, on the host)
+     through the same visualizer, s/image beside the cascade's;
+  28. the tune app in process: ``TuneCascadeApp`` with random draws over
+     the tune-cascade keys without ``cascade_n_nets`` on phase 26's corpus
+     and cache, 2 sessions at a fixed seed, none failed, a global best,
+     the configuration restored; a second app resumes from the state file.
+
+Phases 19 and 20 run their CPU legs on 1 fold and 2 scenes (2 and 4 until
+phases 26-28 came), to keep the script's time.
 
 Kernels against plain versions: at most 1e-4 of the values may differ, each
 by at most 1 (bit-exact is expected); K3's and K2p's outputs must be equal.
@@ -181,7 +206,7 @@ never called by the port; K3 has none. The last line of stdout is
 its launches on its path, error, times and bound (K1 once for each path,
 at that path's shapes; K2, K1's re-extraction and K1's stage 0 also for the
 FDDB app; K1 and K3 also for phase 22's dynamic bundle, K2 for its
-crop-mode bundle); the line before
+crop-mode bundle; K1 for phase 27's visualizer); the line before
 that is the card's name and power limit. Without CUDA the script prints a message
 to stderr and exits 2.
 """
@@ -1578,8 +1603,9 @@ def phase_flagship(torch, device, frames, dense, kind, card):
             "k1_dense": k1_dense, "k2_dense": k2_dense, "k4_dense": k4_dense, "model": model}
 
 FDDB_IMGS_PER_FOLD = 2  # the synthetic 10-fold corpus at its default sizes
-FDDB_CPU_FOLDS = 2  # the folds the CPU runs again
-RUNTIME_POS, RUNTIME_NEG, RUNTIME_CPU_SCENES = 16, 4, 4
+FDDB_CPU_FOLDS = 1  # the folds the CPU runs again (2 until phases 26-28 came)
+# the CPU's scenes were 4 until phases 26-28 came
+RUNTIME_POS, RUNTIME_NEG, RUNTIME_CPU_SCENES = 16, 4, 2
 
 
 @contextlib.contextmanager
@@ -2274,6 +2300,278 @@ def phase_train_profile(torch, device, kind, card):
         cf.restore(saved)
 
 
+TRAIN_APP_POS, TRAIN_APP_NEG = 1000, 2000  # the 80% train split: 2,400 samples, 2 batches
+TRAIN_APP_EPOCHS = 3  # epochs_total cut from 50 (the debug preset's count)
+TRAIN_APP_KEY = "chip_smoke_apps"
+TRAIN_APP_DATASET = "faces"
+# the metric keys of the JAX package's train/metrics.process_results
+METRIC_KEYS = {"accuracy", "f1_score", "false_negatives", "false_positives", "precision",
+               "recall", "samples_negative", "samples_positive", "true_negative_rate",
+               "true_negatives", "true_positives"}
+VIS_SCENES = 4  # VGA scenes through the visualizers
+VIS_CPU_SCENES = 1  # of them again on the CPU
+TUNE_SESSIONS = 2
+
+
+def _train_app_settings(work):
+    """The ``rodc_local.py`` settings of phase 26's runs and the config
+    phases 27-28 use: the corpus, its dataset cache, the checkpoints; the
+    default widths with ``epochs_total`` cut and the constant-prediction
+    guard off (tools/tune_session.py's choice: the F-beta stages of a
+    3-epoch run may predict one class at every evaluation)."""
+    import os
+
+    return {
+        "dataset_path_root": os.path.join(work, "data"),
+        "dataset_keys": [TRAIN_APP_DATASET], "class_min_images": None,
+        "cache_path_root": os.path.join(work, "cache"),
+        "output_graph_dir": os.path.join(work, "models"),
+        "collages_dir": os.path.join(work, "collages"),
+        "log_dir": os.path.join(work, "logs"),
+        "snapshot_dir": os.path.join(work, "snapshots"),
+        "summary_dir": os.path.join(work, "summaries"),
+        "epochs_total": TRAIN_APP_EPOCHS, "n_max_constant_evals": None,
+        "log_auto_save": False,
+    }
+
+
+def _json_line(stdout, prefix):
+    lines = [line for line in stdout.splitlines() if prefix in line]
+    assert lines, "no {!r} line in\n{}".format(prefix, stdout[-3000:])
+    return json.loads(lines[-1].split(prefix, 1)[1])
+
+
+def phase_train_apps(torch, kind, card, work, n_pos=TRAIN_APP_POS, n_neg=TRAIN_APP_NEG,
+                     extra=None, device_args=()):
+    """26. The train apps through the CLI, each in a fresh process on the
+    card set up by a ``rodc_local.py`` overlay: a label-folder corpus of
+    ``n_pos`` face crops and ``n_neg`` background patches written as PNGs,
+    then ``train-cascade`` (builds and caches the dataset at 12/24/48 px,
+    trains, exports) and ``train-single`` (its 48 px dataset read from the
+    cache). Returns the checkpoint's directory and session key."""
+    import os
+
+    from rapidobjectdetectionusingcascadedcnns_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    fg, bg = synthetic.write_label_folder_corpus(os.path.join(work, "data"), TRAIN_APP_DATASET,
+                                                 n_pos, n_neg, seed=0)
+    corpus_s = time.perf_counter() - t0
+    settings = dict(_train_app_settings(work), **(extra or {}))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, RODC_HOME=work)
+    env["PYTHONPATH"] = os.pathsep.join([work, repo, env.get("PYTHONPATH", "")])
+    print("train apps: corpus of {} face crops and {} backgrounds written as PNGs in {:.2f} s; "
+          "default widths, epochs_total {} (cut from 50), n_max_constant_evals None".format(
+              len(fg), len(bg), corpus_s, TRAIN_APP_EPOCHS))
+    for command, key in (("train-cascade", TRAIN_APP_KEY), ("train-single",
+                                                             TRAIN_APP_KEY + "_single")):
+        with open(os.path.join(work, "rodc_local.py"), "w") as f:
+            f.write("cf = {!r}\n".format(dict(settings, session_key=key)))
+        argv = [sys.executable, "-m", "rapidobjectdetectionusingcascadedcnns_torch.run",
+                command] + list(device_args)
+        t0 = time.perf_counter()
+        out = subprocess.run(argv, cwd=work, env=env, capture_output=True, text=True,
+                             timeout=900)
+        wall = time.perf_counter() - t0
+        assert out.returncode == 0, (command, out.returncode, out.stdout[-3000:],
+                                     out.stderr[-3000:])
+        results = _json_line(out.stdout, "final_results: ")
+        phases = _json_line(out.stdout, "phase seconds: ")
+        assert sorted(results) == ["test", "train", "valid"], sorted(results)
+        for split, metrics in results.items():
+            assert METRIC_KEYS <= set(metrics), (split, sorted(metrics))
+        print("train apps: {} -> exit 0 in {:.2f} s (a new process); final_results: {}".format(
+            " ".join(argv[2:]), wall, json.dumps(
+                {k: {m: round(v, 4) for m, v in r.items() if m in ("accuracy", "recall",
+                                                                   "precision")}
+                 for k, r in results.items()})))
+        print("train apps: {} host seconds: {} on {} [{}]".format(
+            command, json.dumps({k: round(v, 3) for k, v in phases.items()}), kind, card))
+    for size in (12, 24, 48):
+        npz = os.path.join(work, "cache", "v1", "{0}x{0}".format(size), TRAIN_APP_DATASET,
+                           "data.npz")
+        assert os.path.exists(npz), npz
+    models = os.path.join(work, "models")
+    names = ["model_{}_{}.{}".format(TRAIN_APP_KEY, i, ext) for i in range(3)
+             for ext in ("npz", "json")]
+    names += ["model_{}_single.{}".format(TRAIN_APP_KEY, ext) for ext in ("npz", "json")]
+    missing = [n for n in names if not os.path.exists(os.path.join(models, n))]
+    assert not missing, missing
+    return {"model_dir": models, "session_key": TRAIN_APP_KEY}
+
+
+def phase_visualizers(torch, kind, card, work, trained, device="cuda", n_scenes=VIS_SCENES,
+                      cpu_scenes=VIS_CPU_SCENES, size=(IMG_H, IMG_W)):
+    """27. The visualizers in process: phase 26's cascade loaded on the card
+    by ``InferenceCascadeApp`` and run through ``InferenceVisualizerApp`` on
+    VGA scenes (stage 0 in gather mode at 1.1: K1 re-extracts), K1 counted
+    and held against its plain version at this path's capacities, the
+    overlays and boxes against the same app on the CPU; then the
+    Viola-Jones baseline (``InferenceOCVApp``, on the host) through the same
+    visualizer. Returns K1's launches and measurement."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.apps import inference_apps, visualizer
+    from rapidobjectdetectionusingcascadedcnns_torch.data import synthetic
+    from rapidobjectdetectionusingcascadedcnns_torch.models import bridge, cascade
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import windows
+
+    windows_cuda, windows_sched_cuda, windows_dyn_cuda, nms_cuda = _kernel_modules()
+    saved = cf.snapshot()
+    try:
+        cf.set("output_graph_dir", trained["model_dir"])
+        cf.set("session_key", "chip_smoke_vis")
+        cf.set("log_auto_save", False)
+        frames = [synthetic.make_scene(*size, n_faces=3, seed=60 + i, min_face=48,
+                                       max_face=120).image for i in range(n_scenes)]
+        app = inference_apps.InferenceCascadeApp(trained["session_key"], device=device)
+        det = app.detector
+        _quietly(app.run_inference_on_images, frames)  # warm-up (cuDNN/cuBLAS plans)
+        cf.set("bbox_visualization_dir", os.path.join(work, "vis_card"))
+        det.redispatches = 0
+        if device == "cuda":
+            torch.cuda.synchronize()
+        _reset_launches()
+        with _captured_results() as got:
+            t0 = time.perf_counter()
+            vis = _quietly(visualizer.InferenceVisualizerApp, app, frames)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+        k1 = windows_cuda.LAUNCHES
+        assert windows_sched_cuda.LAUNCHES == windows_dyn_cuda.LAUNCHES == nms_cuda.LAUNCHES == 0
+        entry = det._plan_and_table(*size)
+        plan, coords = entry[0], entry[2]
+        assert cascade.resolve_extraction_mode(plan) == "gather", plan.n_scales  # cascade.py:154
+        (results,) = got
+        assert len(results) == len(vis.saved_paths) == n_scenes
+        for frame, res, path in zip(frames, results, vis.saved_paths):
+            assert bool(np.isfinite(res.boxes).all()) and res.n_windows == plan.n_windows
+            overlay = np.asarray(Image.open(path))
+            assert np.array_equal(overlay, visualizer.draw_detections(frame, res.boxes,
+                                                                      res.confidences)), path
+        caps = list(det._capacity_override
+                    or cascade.default_capacity_schedule(plan.n_windows, det.model.n_nets))
+        print("visualizer, train-app cascade on {} [{}]: {} VGA scenes in {:.4f} s = {:.4f} "
+              "s/image (overlays drawn and written included); survivors per stage {}, "
+              "detections {}, re-dispatches {}, capacities {}; K1 launches {}, K2 {} (gather "
+              "mode: {} levels)".format(
+                  kind, card, n_scenes, card_s, card_s / n_scenes,
+                  [r.n_survivors_per_stage for r in results], [len(r.boxes) for r in results],
+                  det.redispatches, caps, k1, windows_sched_cuda.LAUNCHES, plan.n_scales))
+        assert (k1 >= 2) == (device == "cuda"), k1
+
+        k1m = None
+        if device == "cuda":
+            planes = windows.to_planes_bf16(_dense_images(torch, torch.device(device), frames))
+            k1m = phase_k1(torch, "train-app visualizer", planes, coords.float(),
+                           {24: caps[0], 48: caps[1]})
+            del planes
+
+        # the same app and visualizer on the CPU
+        cf.set("bbox_visualization_dir", os.path.join(work, "vis_cpu"))
+        cpu_model = bridge.load_cascade(trained["model_dir"], trained["session_key"], "cpu")
+        cpu_app = inference_apps.InferenceCascadeApp(model=cpu_model, device="cpu")
+        with _captured_results() as got_cpu:
+            t0 = time.perf_counter()
+            cpu_vis = _quietly(visualizer.InferenceVisualizerApp, cpu_app, frames[:cpu_scenes])
+            cpu_s = time.perf_counter() - t0
+        (cpu_results,) = got_cpu
+        flips, same_overlays = [], 0
+        for i, (g, c) in enumerate(zip(results, cpu_results)):
+            f, allowed, _, _ = _flips(g, c)
+            flips.append(len(f))
+            assert len(f) <= allowed, (i, len(f), allowed)
+            assert abs(len(g.boxes) - len(c.boxes)) <= len(f), (i, len(g.boxes), len(c.boxes))
+            if _box_set(g.boxes) == _box_set(c.boxes):
+                a = np.asarray(Image.open(vis.saved_paths[i]))
+                b = np.asarray(Image.open(cpu_vis.saved_paths[i]))
+                assert np.array_equal(a, b), i
+                same_overlays += 1
+        print("visualizer card vs cpu ({} scenes, bf16): last-stage survivor flips per scene {} "
+              "(allowed {:.0%} of the survivors), boxes (card, cpu) {}, overlays pixel-equal "
+              "in {} of {} (every scene with equal boxes); the cpu took {:.2f} s".format(
+                  cpu_scenes, flips, BORDERLINE_FRACTION,
+                  [(len(g.boxes), len(c.boxes)) for g, c in zip(results, cpu_results)],
+                  same_overlays, cpu_scenes, cpu_s))
+
+        # the Viola-Jones baseline through the same visualizer, on the host
+        cf.set("bbox_visualization_dir", os.path.join(work, "vis_vj"))
+        cf.set("window_scale_factor", 1.1)
+        with _captured_results() as got_vj:
+            t0 = time.perf_counter()
+            vj_vis = _quietly(visualizer.InferenceVisualizerApp,
+                              inference_apps.InferenceOCVApp(), frames)
+            vj_s = time.perf_counter() - t0
+        (vj_results,) = got_vj
+        assert len(vj_vis.saved_paths) == n_scenes
+        print("visualizer: cascade {:.4f} s/image on {} against the Viola-Jones baseline {:.4f} "
+              "s/image on the host (in-repo evaluator, scale factor 1.1, min_neighbors {}); "
+              "detections per scene cascade {} VJ {}; [{}]".format(
+                  card_s / n_scenes, kind, vj_s / n_scenes, cf.get("nms_opencv_min_neighbors"),
+                  [len(r.boxes) for r in results], [len(r.boxes) for r in vj_results], card))
+    finally:
+        cf.restore(saved)
+    return k1, k1m
+
+
+def phase_tune_app(torch, kind, card, work, trained, device="cuda", extra=None):
+    """28. The tune app in process: ``TuneCascadeApp`` with random draws over
+    the tune-cascade keys without ``cascade_n_nets`` (as
+    tools/tune_session.py: that grid reaches 15 nets) on phase 26's corpus
+    and dataset cache, at its cut epochs and a fixed seed; two sessions, then
+    a second app resuming from the state file for one more."""
+    import os
+
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.apps.tune_apps import TuneCascadeApp
+    from rapidobjectdetectionusingcascadedcnns_torch.run import TUNE_CASCADE_PARAM_KEYS
+    from rapidobjectdetectionusingcascadedcnns_torch.utils import log
+
+    keys = [k for k in TUNE_CASCADE_PARAM_KEYS if k != "cascade_n_nets"]
+    saved = cf.snapshot()
+    state = os.path.join(work, "tune_state.json")
+    try:
+        for key, value in dict(_train_app_settings(work), seed=11, session_key="chip_smoke_tune",
+                               output_graph_dir=os.path.join(work, "tune_models"),
+                               **(extra or {})).items():
+            cf.set(key, value)
+        before = cf.snapshot()
+        log.set_echo(False)
+        try:
+            t0 = time.perf_counter()
+            app = TuneCascadeApp(keys, random=True, max_sessions=TUNE_SESSIONS, state_path=state,
+                                 device=device)
+            first_s = time.perf_counter() - t0
+            assert cf.snapshot() == before, "the tune app left the configuration changed"
+            t0 = time.perf_counter()
+            resumed = TuneCascadeApp(keys, random=True, max_sessions=1, state_path=state,
+                                     device=device)
+            resumed_s = time.perf_counter() - t0
+        finally:
+            log.set_echo(True)
+        assert app.n_sessions == TUNE_SESSIONS and app.n_failed == 0, app.failures
+        assert app.best_score > float("-inf") and app.best_config_snapshot is not None
+        assert resumed.n_failed == 0, resumed.failures
+        assert len(resumed.tuner.results) == TUNE_SESSIONS + 1, len(resumed.tuner.results)
+        assert cf.snapshot() == before
+        print("tune app on {} [{}]: {} sessions in {:.2f} s ({:.2f} s a session; dataset read "
+              "from phase 26's cache), 0 failed, global best {} = {:.4f}; configurations {}; "
+              "a second app resumed from the state file: 1 more session in {:.2f} s, {} "
+              "results in all".format(
+                  kind, card, app.n_sessions, first_s, first_s / app.n_sessions,
+                  cf.get("tuning_main_criteria"), app.best_score,
+                  [r["config"] for r in resumed.tuner.results], resumed_s,
+                  len(resumed.tuner.results)))
+    finally:
+        cf.restore(saved)
+
+
 def _kernel_line(name, source, replaces, launches, m):
     return {
         "name": name,
@@ -2407,6 +2705,22 @@ def main() -> int:
     phase_train_profile(torch, device, kind, card)
     print("phase 25: {:.1f} s".format(time.perf_counter() - t0))
 
+    # ---- 26-28. the train, visualizer and tune apps ----------------------------
+    apps_work = tempfile.mkdtemp(prefix="chip_smoke_apps_")
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        trained_app = phase_train_apps(torch, kind, card, apps_work)
+        print("phase 26: {:.1f} s".format(time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        k1_vis = phase_visualizers(torch, kind, card, apps_work, trained_app)
+        print("phase 27: {:.1f} s".format(time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        phase_tune_app(torch, kind, card, apps_work, trained_app)
+        print("phase 28: {:.1f} s".format(time.perf_counter() - t0))
+    finally:
+        shutil.rmtree(apps_work, ignore_errors=True)
+
     loaded = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "rapidobjectdetectionusingcascadedcnns_tpu")
@@ -2457,6 +2771,9 @@ def main() -> int:
                      "VGA frames)".format(N_FRAMES), "sched.cu", "ops/windows_sched.py:259",
                      *dynamic["crop"]["k2"]),
     ]
+    kernels.append(_kernel_line("K1 crop_and_resize (train-app cascade, visualizer "
+                                "re-extraction)", "resample.cu", "ops/windows_pallas.py:63",
+                                *k1_vis))
     if fddb_app["unscheduled"]:
         kernels.append(_kernel_line(
             "K1 crop_and_resize (flagship, FDDB app stage 0 at the unscheduled sizes {}, "

@@ -4,6 +4,12 @@
 Re-design of ``BaseApp`` (app/base_app.py:32-65): ``run()`` wraps ``_main()``
 with a phase timer, converts Ctrl-C into the cancel hook, and saves the
 session log on completion.
+
+The JAX ``BaseApp.run`` first enables XLA's persistent compilation cache
+(its ``utils/jit_cache.py``). The port has no counterpart module: it
+compiles no program at run time, and its kernels' build cache is
+``ops/_build.py``'s, libraries named by a hash of their sources and flags,
+built once and reused by every process.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ class BaseApp(abc.ABC):
             log.log_save(cf.ensure_dir("log_dir"), cf.get("session_key"))
 
     def run(self):
-        # no compile cache to enable: ops/_build.py builds each kernel once
+        # no compile cache to enable (module docstring)
         timer = TimeWatcher(type(self).__name__)
         try:
             self._main()

@@ -9,12 +9,13 @@ Re-design of the reference inference app family:
     (app/inference_app.py:24-300).
   * :class:`InferenceCascadeApp` — pretrained cascade discovered by probing
     per-stage artifacts (app/inference_cascade_app.py:36-60).
-  * :class:`InferenceOCVApp` — the OpenCV Viola-Jones baseline; not ported
-    yet, it raises.
+  * :class:`InferenceOCVApp` — the OpenCV Viola-Jones baseline
+    (app/inference_ocv_app.py:35-61), on the host.
 
-Every app runs on ``device`` (default: the CUDA card; ``"cpu"`` for the
+Every CNN app runs on ``device`` (default: the CUDA card; ``"cpu"`` for the
 CPU), resolved when the app is made, so an app asked for the card on a host
-without one raises at once.
+without one raises at once. The Viola-Jones baseline runs on the host by
+design (SURVEY.md §2.7) and takes no device.
 
 Deliberate difference from the JAX package: in non-merge mode the JAX app
 catches every exception of an image's detection and returns an empty result
@@ -192,12 +193,52 @@ class InferenceCascadeApp(AbstractInferenceApp):
         return self.detector.detect_batch(list(images))
 
 
-class InferenceOCVApp:
-    """The OpenCV Viola-Jones baseline (app/inference_ocv_app.py:35-61).
-    Not ported yet: it needs the port's ``ops/viola_jones.py``."""
+class InferenceOCVApp(AbstractInferenceApp):
+    """OpenCV Viola-Jones baseline (app/inference_ocv_app.py:35-61).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the Viola-Jones baseline app needs ops/viola_jones.py, which is not "
-            "ported yet (ROADMAP Queue A item 5b)"
+    Baseline-only and host-only, like the JAX package's (SURVEY.md §2.7):
+    cv2's CascadeClassifier when this build has objdetect, otherwise the
+    port's in-repo evaluator (ops/viola_jones.py) runs the same pretrained
+    XML.
+    """
+
+    def __init__(self, cascade_xml_path: Optional[str] = None):
+        super().__init__("cpu")
+        from ..ops import viola_jones as vj
+
+        self._classifier = None
+        try:
+            import cv2
+
+            if hasattr(cv2, "CascadeClassifier"):
+                path = vj.default_cascade_path(cascade_xml_path)
+                if path:
+                    self._classifier = cv2.CascadeClassifier(path)
+        except ImportError:  # cv2 is optional
+            pass
+        if self._classifier is None:
+            self._classifier = vj.VJDetector(cascade_xml_path)
+
+    def run_inference_on_image(self, image):
+        from ..ops import viola_jones as vj
+
+        gray = vj.rgb_to_gray_u8(image)
+        rects = self._classifier.detectMultiScale(
+            gray,
+            scaleFactor=cf.get("window_scale_factor"),
+            minNeighbors=cf.get("nms_opencv_min_neighbors"),
         )
+        if len(rects) == 0:
+            boxes = np.zeros((0, 4))
+        else:
+            rects = np.asarray(rects, np.float64)
+            boxes = np.stack(
+                [rects[:, 0], rects[:, 1], rects[:, 0] + rects[:, 2], rects[:, 1] + rects[:, 3]],
+                axis=1,
+            )
+        conf = np.ones((len(boxes),))
+        return DetectionResult(boxes, conf, boxes, conf, 0, [])
+
+    def run_inference_on_images_impl(self, images):
+        # non-merge only, like the reference forces (inference_ocv_app.py:26)
+        return [self.run_inference_on_image(img) for img in images]

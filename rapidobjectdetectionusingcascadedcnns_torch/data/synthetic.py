@@ -7,7 +7,9 @@ scene-sampled ``make_scene_patch_dataset``,
 ``make_multiresolution_scene_patch_dataset``). Same seeds, same pixels:
 skin-toned ellipses with darker eye/mouth blobs pasted on a low-frequency
 textured canvas, with ground-truth boxes, so training and detection run
-hermetically and reproducibly.
+hermetically and reproducibly. ``write_label_folder_corpus`` (the port's
+own) writes such faces and backgrounds as an image corpus on disk, for the
+disk dataset provider and the train apps.
 """
 
 from __future__ import annotations
@@ -236,3 +238,43 @@ def make_multiresolution_scene_patch_dataset(
     :func:`make_multiresolution_patch_dataset`)."""
     images_top, labels = make_scene_patch_dataset(n_pos, n_neg, max(sizes), seed)
     return {"images": aligned_views(images_top, sizes), "labels": labels}
+
+
+def write_label_folder_corpus(
+    root: str,
+    dataset_key: str,
+    n_pos: int,
+    n_neg: int,
+    seed: int = 0,
+    face_size: Tuple[int, int] = (40, 80),
+    background_size: int = 64,
+) -> Tuple[List[str], List[str]]:
+    """A label-folder image corpus on disk, as ``data/file_list.py`` walks
+    it: ``<root>/<dataset_key>/foreground/*.png`` holds the face crops of
+    ``n_pos`` one-face scenes (``make_scene`` at seeds ``seed + i``, cut at
+    their ground-truth boxes), ``<root>/<dataset_key>/background/*.png``
+    ``n_neg`` ``draw_background`` patches of ``background_size`` pixels from
+    one ``RandomState(seed)``. Returns the two lists of paths."""
+    import os
+
+    from PIL import Image
+
+    fg_dir = os.path.join(root, dataset_key, "foreground")
+    bg_dir = os.path.join(root, dataset_key, "background")
+    os.makedirs(fg_dir, exist_ok=True)
+    os.makedirs(bg_dir, exist_ok=True)
+    lo, hi = face_size
+    side = hi + 16
+    fg, bg = [], []
+    for i in range(n_pos):
+        scene = make_scene(side, side, 1, seed=seed + i, min_face=lo, max_face=hi)
+        x0, y0, x1, y1 = scene.boxes[0]
+        path = os.path.join(fg_dir, "face_{:05d}.png".format(i))
+        Image.fromarray(scene.image[y0:y1, x0:x1]).save(path)
+        fg.append(path)
+    rng = np.random.RandomState(seed)
+    for i in range(n_neg):
+        path = os.path.join(bg_dir, "bg_{:05d}.png".format(i))
+        Image.fromarray(draw_background(rng, background_size)).save(path)
+        bg.append(path)
+    return fg, bg

@@ -35,7 +35,7 @@ from ..data.preprocessor import Preprocessor
 from ..labels import IID_BACKGROUND, IID_FOREGROUND
 from ..models import cnn
 from ..models.cascade import CascadeModel
-from ..utils import log
+from ..utils import log, profiling
 from ..utils.device import resolve_device
 from . import metrics
 from .trainer import ConstantPredictionException, SingleNetTrainer, refuse_unported
@@ -316,7 +316,8 @@ class CascadeTrainer:
             else:
                 stage_overlay = {}
             trial = 1
-            with cf.overrides(**stage_overlay):
+            stage_timer = profiling.phase("train stage {} ({} px)".format(stage, self.sizes[stage]))
+            with stage_timer, cf.overrides(**stage_overlay):
                 while True:
                     trainer = SingleNetTrainer(
                         ds,

@@ -19,7 +19,8 @@ all its guards:
 
 The device work goes through :mod:`.train_step`; the loop is host
 orchestration, with the batch stream of the JAX package's seeded iterators
-(the same seeds give the same batches in both packages). It runs on the
+(the same seeds give the same batches in both packages), assembled ahead of
+the card by a prefetch thread (``data/prefetch.PrefetchIterator``, depth 2). It runs on the
 CUDA card unless given ``device="cpu"``. Data-parallel meshes (ROADMAP
 Queue A item 6) and the Inception backbone (item 7) are not ported and
 raise.
@@ -38,6 +39,7 @@ import torch
 
 from .. import config as cf
 from ..data.dataset import Dataset, DatasetSplit, DeterministicIterator
+from ..data.prefetch import PrefetchIterator
 from ..labels import IID_BACKGROUND, IID_FOREGROUND, n_labels
 from ..models import bridge, cnn
 from ..ops import augment as augment_ops
@@ -266,7 +268,9 @@ class SingleNetTrainer:
             if cancel:
                 break
             log.log("Epoch {}/{}".format(it.epoch + 1, cf.get("epochs_total")))
-            for batch in it:
+            # host-side batch assembly runs ahead of the card in a
+            # background thread, as in the JAX package's loop
+            for batch in PrefetchIterator(iter(it), depth=2):
                 step += 1
                 images, labels, bneck = self._place_batch(batch)
                 loss = train_step.train_step(

@@ -17,8 +17,8 @@ hyper_tuner_random.py, hyper_tuner_successive.py):
 
 Configuration changes go through ``cf.set`` against the process-global
 config; callers snapshot/restore around sessions (config.snapshot/restore).
-The tune session tool (``tools/tune_session.py``) needs the tune apps and
-waits for them (ROADMAP Queue A item 5b).
+The tune apps (``apps/tune_apps.py``) drive them over training sessions,
+and ``tools/tune_torch_session.py`` records such a sweep.
 """
 
 from __future__ import annotations

@@ -35,3 +35,20 @@ def set_numerics(compute_dtype: torch.dtype) -> None:
     if compute_dtype == torch.float32:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+
+
+# what the CUDA runtime and its libraries put in the messages of the
+# RuntimeErrors torch raises, and the port's kernel wrappers' launch errors
+# ("K1 launch failed: cudaError 700")
+_CUDA_ERROR_MARKS = ("CUDA error", "CUDA driver error", "cudaError", "CUBLAS_STATUS",
+                     "CUDNN_STATUS", "cuDNN error")
+
+
+def is_cuda_error(exc: BaseException) -> bool:
+    """True for an error of the CUDA runtime (``torch.AcceleratorError``, or
+    a ``RuntimeError`` whose message comes from CUDA, cuBLAS, cuDNN or a
+    kernel launch). After one, the card's context may be unusable, so a
+    caller that isolates failures re-raises these."""
+    if isinstance(exc, getattr(torch, "AcceleratorError", ())):
+        return True
+    return isinstance(exc, RuntimeError) and any(m in str(exc) for m in _CUDA_ERROR_MARKS)

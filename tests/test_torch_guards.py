@@ -36,8 +36,13 @@ PORT_MODULES = [
     "rapidobjectdetectionusingcascadedcnns_torch.apps.evaluate_fddb",
     "rapidobjectdetectionusingcascadedcnns_torch.apps.evaluate_runtime",
     "rapidobjectdetectionusingcascadedcnns_torch.apps.inference_apps",
+    "rapidobjectdetectionusingcascadedcnns_torch.apps.offline_sampling",
+    "rapidobjectdetectionusingcascadedcnns_torch.apps.train_apps",
+    "rapidobjectdetectionusingcascadedcnns_torch.apps.tune_apps",
+    "rapidobjectdetectionusingcascadedcnns_torch.apps.visualizer",
     "rapidobjectdetectionusingcascadedcnns_torch.config",
     "rapidobjectdetectionusingcascadedcnns_torch.data",
+    "rapidobjectdetectionusingcascadedcnns_torch.data.annotations",
     "rapidobjectdetectionusingcascadedcnns_torch.data.cache",
     "rapidobjectdetectionusingcascadedcnns_torch.data.dataset",
     "rapidobjectdetectionusingcascadedcnns_torch.data.fddb",
@@ -45,6 +50,8 @@ PORT_MODULES = [
     "rapidobjectdetectionusingcascadedcnns_torch.data.file_list",
     "rapidobjectdetectionusingcascadedcnns_torch.data.image_io",
     "rapidobjectdetectionusingcascadedcnns_torch.data.imagenet_info",
+    "rapidobjectdetectionusingcascadedcnns_torch.data.loader",
+    "rapidobjectdetectionusingcascadedcnns_torch.data.prefetch",
     "rapidobjectdetectionusingcascadedcnns_torch.data.preprocessor",
     "rapidobjectdetectionusingcascadedcnns_torch.data.synthetic",
     "rapidobjectdetectionusingcascadedcnns_torch.labels",
@@ -61,6 +68,8 @@ PORT_MODULES = [
     "rapidobjectdetectionusingcascadedcnns_torch.ops.nms_cuda",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.pyramid",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.rectangles",
+    "rapidobjectdetectionusingcascadedcnns_torch.ops.sampling",
+    "rapidobjectdetectionusingcascadedcnns_torch.ops.viola_jones",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.windows",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.windows_cuda",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.windows_dyn",
@@ -78,10 +87,13 @@ PORT_MODULES = [
     "rapidobjectdetectionusingcascadedcnns_torch.train.optimizer",
     "rapidobjectdetectionusingcascadedcnns_torch.train.train_step",
     "rapidobjectdetectionusingcascadedcnns_torch.train.trainer",
+    "rapidobjectdetectionusingcascadedcnns_torch.utils.collage",
     "rapidobjectdetectionusingcascadedcnns_torch.utils.console",
     "rapidobjectdetectionusingcascadedcnns_torch.utils.device",
     "rapidobjectdetectionusingcascadedcnns_torch.utils.file_handler",
     "rapidobjectdetectionusingcascadedcnns_torch.utils.log",
+    "rapidobjectdetectionusingcascadedcnns_torch.utils.numbers",
+    "rapidobjectdetectionusingcascadedcnns_torch.utils.profiling",
     "rapidobjectdetectionusingcascadedcnns_torch.utils.time_watcher",
 ]
 
@@ -224,15 +236,14 @@ def _tiny_model():
         (lambda m: ttrainer.SingleNetTrainer(None, mesh=object(), device="cpu"), "item 6"),
         (lambda m: ttrainer.SingleNetTrainer(None, use_inception=True, device="cpu"),
          "item 7"),
-        (lambda m: tapps.InferenceOCVApp(), "item 5b"),
     ],
     ids=["detector mesh", "bundle mesh", "window-sharded bundle", "cascade trainer mesh",
-         "trainer mesh", "trainer inception", "viola-jones app"],
+         "trainer mesh", "trainer inception"],
 )
 def test_unported_paths_raise(entry, what):
-    """Meshes (ROADMAP Queue A item 6), the Inception backbone (item 7) and
-    the Viola-Jones baseline app (item 5b) are not ported: the entry points
-    that take one raise, naming the item, rather than running without it."""
+    """Meshes (ROADMAP Queue A item 6) and the Inception backbone (item 7)
+    are not ported: the entry points that take one raise, naming the item,
+    rather than running without it."""
     with pytest.raises(NotImplementedError, match=what):
         entry(_tiny_model())
 
