@@ -183,8 +183,9 @@ Phases (each checked; any failure exits non-zero):
   27. the visualizers in process: phase 26's checkpoint loaded on the card
      by ``InferenceCascadeApp`` through ``InferenceVisualizerApp`` on 4 VGA
      scenes (gather mode at 1.1, K1 re-extracts), K1 counted around the
-     visualizer's run and held against its plain version at this path's
-     capacities; each overlay equal to ``draw_detections`` of its boxes;
+     visualizer's run per dispatch shape (the first dispatch and each
+     saturation re-dispatch rung) and held against its plain version at
+     every one of those shapes; each overlay equal to ``draw_detections`` of its boxes;
      one scene again on the CPU (flips at most 2%, overlays equal where the
      boxes are); then ``InferenceOCVApp`` (Viola-Jones, on the host)
      through the same visualizer, s/image beside the cascade's;
@@ -206,9 +207,9 @@ never called by the port; K3 has none. The last line of stdout is
 its launches on its path, error, times and bound (K1 once for each path,
 at that path's shapes; K2, K1's re-extraction and K1's stage 0 also for the
 FDDB app; K1 and K3 also for phase 22's dynamic bundle, K2 for its
-crop-mode bundle; K1 for phase 27's visualizer); the line before
-that is the card's name and power limit. Without CUDA the script prints a message
-to stderr and exits 2.
+crop-mode bundle; K1 for phase 27's visualizer, once for each dispatch
+shape); the line before that is the card's name and power limit. Without
+CUDA the script prints a message to stderr and exits 2.
 """
 
 from __future__ import annotations
@@ -2341,23 +2342,22 @@ def _json_line(stdout, prefix):
     return json.loads(lines[-1].split(prefix, 1)[1])
 
 
-def phase_train_apps(torch, kind, card, work, n_pos=TRAIN_APP_POS, n_neg=TRAIN_APP_NEG,
-                     extra=None, device_args=()):
+def phase_train_apps(torch, kind, card, work):
     """26. The train apps through the CLI, each in a fresh process on the
     card set up by a ``rodc_local.py`` overlay: a label-folder corpus of
-    ``n_pos`` face crops and ``n_neg`` background patches written as PNGs,
-    then ``train-cascade`` (builds and caches the dataset at 12/24/48 px,
-    trains, exports) and ``train-single`` (its 48 px dataset read from the
-    cache). Returns the checkpoint's directory and session key."""
+    ``TRAIN_APP_POS`` face crops and ``TRAIN_APP_NEG`` background patches
+    written as PNGs, then ``train-cascade`` (builds and caches the dataset at
+    12/24/48 px, trains, exports) and ``train-single`` (its 48 px dataset
+    read from the cache). Returns the checkpoint's directory and session key."""
     import os
 
     from rapidobjectdetectionusingcascadedcnns_torch.data import synthetic
 
     t0 = time.perf_counter()
     fg, bg = synthetic.write_label_folder_corpus(os.path.join(work, "data"), TRAIN_APP_DATASET,
-                                                 n_pos, n_neg, seed=0)
+                                                 TRAIN_APP_POS, TRAIN_APP_NEG, seed=0)
     corpus_s = time.perf_counter() - t0
-    settings = dict(_train_app_settings(work), **(extra or {}))
+    settings = _train_app_settings(work)
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, RODC_HOME=work)
     env["PYTHONPATH"] = os.pathsep.join([work, repo, env.get("PYTHONPATH", "")])
@@ -2369,7 +2369,7 @@ def phase_train_apps(torch, kind, card, work, n_pos=TRAIN_APP_POS, n_neg=TRAIN_A
         with open(os.path.join(work, "rodc_local.py"), "w") as f:
             f.write("cf = {!r}\n".format(dict(settings, session_key=key)))
         argv = [sys.executable, "-m", "rapidobjectdetectionusingcascadedcnns_torch.run",
-                command] + list(device_args)
+                command]
         t0 = time.perf_counter()
         out = subprocess.run(argv, cwd=work, env=env, capture_output=True, text=True,
                              timeout=900)
@@ -2401,15 +2401,16 @@ def phase_train_apps(torch, kind, card, work, n_pos=TRAIN_APP_POS, n_neg=TRAIN_A
     return {"model_dir": models, "session_key": TRAIN_APP_KEY}
 
 
-def phase_visualizers(torch, kind, card, work, trained, device="cuda", n_scenes=VIS_SCENES,
-                      cpu_scenes=VIS_CPU_SCENES, size=(IMG_H, IMG_W)):
+def phase_visualizers(torch, kind, card, work, trained):
     """27. The visualizers in process: phase 26's cascade loaded on the card
     by ``InferenceCascadeApp`` and run through ``InferenceVisualizerApp`` on
     VGA scenes (stage 0 in gather mode at 1.1: K1 re-extracts), K1 counted
-    and held against its plain version at this path's capacities, the
-    overlays and boxes against the same app on the CPU; then the
-    Viola-Jones baseline (``InferenceOCVApp``, on the host) through the same
-    visualizer. Returns K1's launches and measurement."""
+    per dispatch shape (the first dispatch and each saturation re-dispatch
+    rung) and held against its plain version at every shape the run
+    launched it at, the overlays and boxes against the same app on the CPU;
+    then the Viola-Jones baseline (``InferenceOCVApp``, on the host) through
+    the same visualizer. Returns one ``(label, launches, measurement)`` for
+    K1 per dispatch shape."""
     import os
 
     import numpy as np
@@ -2427,51 +2428,72 @@ def phase_visualizers(torch, kind, card, work, trained, device="cuda", n_scenes=
         cf.set("output_graph_dir", trained["model_dir"])
         cf.set("session_key", "chip_smoke_vis")
         cf.set("log_auto_save", False)
-        frames = [synthetic.make_scene(*size, n_faces=3, seed=60 + i, min_face=48,
-                                       max_face=120).image for i in range(n_scenes)]
-        app = inference_apps.InferenceCascadeApp(trained["session_key"], device=device)
+        frames = [synthetic.make_scene(IMG_H, IMG_W, n_faces=3, seed=60 + i, min_face=48,
+                                       max_face=120).image for i in range(VIS_SCENES)]
+        app = inference_apps.InferenceCascadeApp(trained["session_key"])
         det = app.detector
         _quietly(app.run_inference_on_images, frames)  # warm-up (cuDNN/cuBLAS plans)
         cf.set("bbox_visualization_dir", os.path.join(work, "vis_card"))
         det.redispatches = 0
-        if device == "cuda":
-            torch.cuda.synchronize()
+        # K1's launches per dispatch shape (frames, capacities), with the
+        # frames each shape first saw
+        shapes = {}
+        run_chunk = det._run_chunk
+
+        def counted_chunk(chunk, yuv, caps, entry, resample):
+            before = windows_cuda.LAUNCHES
+            out = run_chunk(chunk, yuv, caps, entry, resample)
+            shape = shapes.setdefault((len(chunk), tuple(caps)), {"frames": chunk, "k1": 0})
+            shape["k1"] += windows_cuda.LAUNCHES - before
+            return out
+
+        det._run_chunk = counted_chunk
+        torch.cuda.synchronize()
         _reset_launches()
         with _captured_results() as got:
             t0 = time.perf_counter()
             vis = _quietly(visualizer.InferenceVisualizerApp, app, frames)
-            if device == "cuda":
-                torch.cuda.synchronize()
+            torch.cuda.synchronize()
             card_s = time.perf_counter() - t0
+        del det._run_chunk
         k1 = windows_cuda.LAUNCHES
+        assert k1 >= 2, k1
+        assert k1 == sum(v["k1"] for v in shapes.values()), (k1, shapes)
         assert windows_sched_cuda.LAUNCHES == windows_dyn_cuda.LAUNCHES == nms_cuda.LAUNCHES == 0
-        entry = det._plan_and_table(*size)
+        entry = det._plan_and_table(IMG_H, IMG_W)
         plan, coords = entry[0], entry[2]
         assert cascade.resolve_extraction_mode(plan) == "gather", plan.n_scales  # cascade.py:154
         (results,) = got
-        assert len(results) == len(vis.saved_paths) == n_scenes
+        assert len(results) == len(vis.saved_paths) == VIS_SCENES
         for frame, res, path in zip(frames, results, vis.saved_paths):
             assert bool(np.isfinite(res.boxes).all()) and res.n_windows == plan.n_windows
             overlay = np.asarray(Image.open(path))
             assert np.array_equal(overlay, visualizer.draw_detections(frame, res.boxes,
                                                                       res.confidences)), path
-        caps = list(det._capacity_override
-                    or cascade.default_capacity_schedule(plan.n_windows, det.model.n_nets))
         print("visualizer, train-app cascade on {} [{}]: {} VGA scenes in {:.4f} s = {:.4f} "
               "s/image (overlays drawn and written included); survivors per stage {}, "
-              "detections {}, re-dispatches {}, capacities {}; K1 launches {}, K2 {} (gather "
-              "mode: {} levels)".format(
-                  kind, card, n_scenes, card_s, card_s / n_scenes,
+              "detections {}, re-dispatches {}; K1 launches {} by (frames, capacities) {}, "
+              "K2 {} (gather mode: {} levels)".format(
+                  kind, card, VIS_SCENES, card_s, card_s / VIS_SCENES,
                   [r.n_survivors_per_stage for r in results], [len(r.boxes) for r in results],
-                  det.redispatches, caps, k1, windows_sched_cuda.LAUNCHES, plan.n_scales))
-        assert (k1 >= 2) == (device == "cuda"), k1
+                  det.redispatches, k1, {"{} x {}".format(*k): v["k1"]
+                                         for k, v in shapes.items()},
+                  windows_sched_cuda.LAUNCHES, plan.n_scales))
 
-        k1m = None
-        if device == "cuda":
-            planes = windows.to_planes_bf16(_dense_images(torch, torch.device(device), frames))
-            k1m = phase_k1(torch, "train-app visualizer", planes, coords.float(),
-                           {24: caps[0], 48: caps[1]})
+        # K1 against its plain version at every shape the run launched it at
+        default_caps = tuple(det._capacity_override or cascade.default_capacity_schedule(
+            plan.n_windows, det.model.n_nets))
+        k1_lines = []
+        for (n_frames, caps), shape in sorted(shapes.items(), key=lambda kv: kv[0][1]):
+            what = "{}, {} frame{} at capacities {}".format(
+                "first dispatch" if caps == default_caps else "saturation re-dispatch",
+                n_frames, "" if n_frames == 1 else "s", "/".join(map(str, caps)))
+            planes = windows.to_planes_bf16(_dense_images(torch, torch.device("cuda"),
+                                                          shape["frames"]))
+            m = phase_k1(torch, "train-app visualizer, " + what, planes, coords.float(),
+                         {24: caps[0], 48: caps[1]})
             del planes
+            k1_lines.append((what, shape["k1"], m))
 
         # the same app and visualizer on the CPU
         cf.set("bbox_visualization_dir", os.path.join(work, "vis_cpu"))
@@ -2479,7 +2501,8 @@ def phase_visualizers(torch, kind, card, work, trained, device="cuda", n_scenes=
         cpu_app = inference_apps.InferenceCascadeApp(model=cpu_model, device="cpu")
         with _captured_results() as got_cpu:
             t0 = time.perf_counter()
-            cpu_vis = _quietly(visualizer.InferenceVisualizerApp, cpu_app, frames[:cpu_scenes])
+            cpu_vis = _quietly(visualizer.InferenceVisualizerApp, cpu_app,
+                               frames[:VIS_CPU_SCENES])
             cpu_s = time.perf_counter() - t0
         (cpu_results,) = got_cpu
         flips, same_overlays = [], 0
@@ -2496,9 +2519,9 @@ def phase_visualizers(torch, kind, card, work, trained, device="cuda", n_scenes=
         print("visualizer card vs cpu ({} scenes, bf16): last-stage survivor flips per scene {} "
               "(allowed {:.0%} of the survivors), boxes (card, cpu) {}, overlays pixel-equal "
               "in {} of {} (every scene with equal boxes); the cpu took {:.2f} s".format(
-                  cpu_scenes, flips, BORDERLINE_FRACTION,
+                  VIS_CPU_SCENES, flips, BORDERLINE_FRACTION,
                   [(len(g.boxes), len(c.boxes)) for g, c in zip(results, cpu_results)],
-                  same_overlays, cpu_scenes, cpu_s))
+                  same_overlays, VIS_CPU_SCENES, cpu_s))
 
         # the Viola-Jones baseline through the same visualizer, on the host
         cf.set("bbox_visualization_dir", os.path.join(work, "vis_vj"))
@@ -2509,18 +2532,18 @@ def phase_visualizers(torch, kind, card, work, trained, device="cuda", n_scenes=
                               inference_apps.InferenceOCVApp(), frames)
             vj_s = time.perf_counter() - t0
         (vj_results,) = got_vj
-        assert len(vj_vis.saved_paths) == n_scenes
+        assert len(vj_vis.saved_paths) == VIS_SCENES
         print("visualizer: cascade {:.4f} s/image on {} against the Viola-Jones baseline {:.4f} "
               "s/image on the host (in-repo evaluator, scale factor 1.1, min_neighbors {}); "
               "detections per scene cascade {} VJ {}; [{}]".format(
-                  card_s / n_scenes, kind, vj_s / n_scenes, cf.get("nms_opencv_min_neighbors"),
+                  card_s / VIS_SCENES, kind, vj_s / VIS_SCENES, cf.get("nms_opencv_min_neighbors"),
                   [len(r.boxes) for r in results], [len(r.boxes) for r in vj_results], card))
     finally:
         cf.restore(saved)
-    return k1, k1m
+    return k1_lines
 
 
-def phase_tune_app(torch, kind, card, work, trained, device="cuda", extra=None):
+def phase_tune_app(torch, kind, card, work, trained):
     """28. The tune app in process: ``TuneCascadeApp`` with random draws over
     the tune-cascade keys without ``cascade_n_nets`` (as
     tools/tune_session.py: that grid reaches 15 nets) on phase 26's corpus
@@ -2538,20 +2561,17 @@ def phase_tune_app(torch, kind, card, work, trained, device="cuda", extra=None):
     state = os.path.join(work, "tune_state.json")
     try:
         for key, value in dict(_train_app_settings(work), seed=11, session_key="chip_smoke_tune",
-                               output_graph_dir=os.path.join(work, "tune_models"),
-                               **(extra or {})).items():
+                               output_graph_dir=os.path.join(work, "tune_models")).items():
             cf.set(key, value)
         before = cf.snapshot()
         log.set_echo(False)
         try:
             t0 = time.perf_counter()
-            app = TuneCascadeApp(keys, random=True, max_sessions=TUNE_SESSIONS, state_path=state,
-                                 device=device)
+            app = TuneCascadeApp(keys, random=True, max_sessions=TUNE_SESSIONS, state_path=state)
             first_s = time.perf_counter() - t0
             assert cf.snapshot() == before, "the tune app left the configuration changed"
             t0 = time.perf_counter()
-            resumed = TuneCascadeApp(keys, random=True, max_sessions=1, state_path=state,
-                                     device=device)
+            resumed = TuneCascadeApp(keys, random=True, max_sessions=1, state_path=state)
             resumed_s = time.perf_counter() - t0
         finally:
             log.set_echo(True)
@@ -2771,9 +2791,9 @@ def main() -> int:
                      "VGA frames)".format(N_FRAMES), "sched.cu", "ops/windows_sched.py:259",
                      *dynamic["crop"]["k2"]),
     ]
-    kernels.append(_kernel_line("K1 crop_and_resize (train-app cascade, visualizer "
-                                "re-extraction)", "resample.cu", "ops/windows_pallas.py:63",
-                                *k1_vis))
+    kernels += [_kernel_line("K1 crop_and_resize (train-app cascade, visualizer re-extraction, "
+                             "{})".format(what), "resample.cu", "ops/windows_pallas.py:63",
+                             launches, m) for what, launches, m in k1_vis]
     if fddb_app["unscheduled"]:
         kernels.append(_kernel_line(
             "K1 crop_and_resize (flagship, FDDB app stage 0 at the unscheduled sizes {}, "

@@ -17,26 +17,59 @@ from typing import Iterator, Optional
 
 
 class PrefetchIterator:
-    """Wraps a batch iterator with a bounded background prefetch queue."""
+    """Wraps a batch iterator with a bounded background prefetch queue.
+
+    A consumer that leaves before the end calls :meth:`close` (or uses the
+    iterator as a context manager): the worker then stops at its next
+    ``put`` and lets go of the iterator and the arrays it holds."""
 
     _SENTINEL = object()
+    _POLL_S = 0.1  # how often a worker blocked on a full queue looks for close()
 
     def __init__(self, batch_iterable: Iterator, depth: int = 2):
         self._queue: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
         self._error: Optional[BaseException] = None
+        self._stop = threading.Event()
         self._thread = threading.Thread(
-            target=self._worker, args=(batch_iterable,), daemon=True
+            target=self._worker, args=(batch_iterable,), name="PrefetchIterator", daemon=True
         )
         self._thread.start()
+
+    def _put(self, item) -> bool:
+        """Queue ``item``; False once :meth:`close` was called."""
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=self._POLL_S)
+                return True
+            except queue.Full:
+                pass
+        return False
 
     def _worker(self, batch_iterable) -> None:
         try:
             for batch in batch_iterable:
-                self._queue.put(batch)
+                if not self._put(batch):
+                    return
         except BaseException as exc:  # propagate into the consumer
             self._error = exc
         finally:
-            self._queue.put(self._SENTINEL)
+            self._put(self._SENTINEL)
+
+    def close(self) -> None:
+        """Stop the worker, wait for it and drop the batches it queued."""
+        self._stop.set()
+        self._thread.join()
+        while True:
+            try:
+                self._queue.get_nowait()
+            except queue.Empty:
+                break
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc_info) -> None:
+        self.close()
 
     def __iter__(self):
         return self

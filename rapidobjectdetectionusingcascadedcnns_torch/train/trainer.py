@@ -269,63 +269,65 @@ class SingleNetTrainer:
                 break
             log.log("Epoch {}/{}".format(it.epoch + 1, cf.get("epochs_total")))
             # host-side batch assembly runs ahead of the card in a
-            # background thread, as in the JAX package's loop
-            for batch in PrefetchIterator(iter(it), depth=2):
-                step += 1
-                images, labels, bneck = self._place_batch(batch)
-                loss = train_step.train_step(
-                    self.state, self.stage_config, self._loss_settings, self._augment,
-                    images, labels, bneck, self._mean, self._std,
-                    self._host_gen, self._device_gen,
-                )
-                self.loss_history.append(loss)
+            # background thread, as in the JAX package's loop; leaving the
+            # epoch early (cancel, timeout, an exception) stops the thread
+            with PrefetchIterator(iter(it), depth=2) as batches:
+                for batch in batches:
+                    step += 1
+                    images, labels, bneck = self._place_batch(batch)
+                    loss = train_step.train_step(
+                        self.state, self.stage_config, self._loss_settings, self._augment,
+                        images, labels, bneck, self._mean, self._std,
+                        self._host_gen, self._device_gen,
+                    )
+                    self.loss_history.append(loss)
 
-                if step % interrupt_often == 1 or step == self.iterations_total:
-                    loss_value = float(loss)
-                    self._last_loss = loss_value
-                    if math.isnan(loss_value):
-                        log.log("ERROR: loss value is nan. Cancelling training.")
+                    if step % interrupt_often == 1 or step == self.iterations_total:
+                        loss_value = float(loss)
+                        self._last_loss = loss_value
+                        if math.isnan(loss_value):
+                            log.log("ERROR: loss value is nan. Cancelling training.")
+                            cancel = True
+                            break
+                        log.log(
+                            "Iteration {}/{}: loss = {:.4f}".format(
+                                step, self.iterations_total, loss_value
+                            )
+                        )
+                        self._write_summary(summary_path, step, loss_value)
+
+                    if (
+                        step % interrupt_sometimes == 0
+                        and step < max_eval_step
+                        and step != self.iterations_total
+                    ):
+                        res_val = self.evaluate_split(self.ds.valid, " -> validation:")
+                        self._check_constant_prediction(res_val, n_const_predict)
+                        if step % interrupt_seldom == 0:
+                            self.evaluate_split(self.ds.train, " -> training:")
+                        self._update_best_val_results(res_val)
+
+                    if (
+                        cf.get("restore_after") is not None
+                        and self.iterations_since_best_found > cf.get("restore_after")
+                        and step != self.iterations_total
+                        and self.best_params is not None
+                    ):
+                        self.iterations_since_best_found = 0
+                        log.log(
+                            "Step back: restoring best parameters (no progress for "
+                            "more than {} iterations).".format(cf.get("restore_after"))
+                        )
+                        self._load_params(self.best_params)
+
+                    self.iterations_since_best_found += 1
+
+                    if cf.get("timeout_minutes") > 0 and (
+                        time.time() - start_time > cf.get("timeout_seconds")
+                    ):
+                        log.log("TIMEOUT: stopping earlier. saving current work.")
                         cancel = True
                         break
-                    log.log(
-                        "Iteration {}/{}: loss = {:.4f}".format(
-                            step, self.iterations_total, loss_value
-                        )
-                    )
-                    self._write_summary(summary_path, step, loss_value)
-
-                if (
-                    step % interrupt_sometimes == 0
-                    and step < max_eval_step
-                    and step != self.iterations_total
-                ):
-                    res_val = self.evaluate_split(self.ds.valid, " -> validation:")
-                    self._check_constant_prediction(res_val, n_const_predict)
-                    if step % interrupt_seldom == 0:
-                        self.evaluate_split(self.ds.train, " -> training:")
-                    self._update_best_val_results(res_val)
-
-                if (
-                    cf.get("restore_after") is not None
-                    and self.iterations_since_best_found > cf.get("restore_after")
-                    and step != self.iterations_total
-                    and self.best_params is not None
-                ):
-                    self.iterations_since_best_found = 0
-                    log.log(
-                        "Step back: restoring best parameters (no progress for "
-                        "more than {} iterations).".format(cf.get("restore_after"))
-                    )
-                    self._load_params(self.best_params)
-
-                self.iterations_since_best_found += 1
-
-                if cf.get("timeout_minutes") > 0 and (
-                    time.time() - start_time > cf.get("timeout_seconds")
-                ):
-                    log.log("TIMEOUT: stopping earlier. saving current work.")
-                    cancel = True
-                    break
 
         self.stop_training()
 

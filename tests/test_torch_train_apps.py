@@ -12,7 +12,9 @@ but 1e-4 of the values within rtol 1e-3 and atol 1e-4, the rest within 10
 learning rates; the evaluation results and the collage PNG equal.
 """
 
+import contextlib
 import os
+import threading
 
 import jax
 import numpy as np
@@ -191,8 +193,9 @@ def test_checkpoints_read_across(trained):
 
 def test_prefetch_keeps_the_batch_stream(trained, monkeypatch):
     """The loop's ``PrefetchIterator`` gives the batches in the order the
-    iterator gives them, re-raises a producer's error in the consumer, and
-    leaves a trainer's losses as they are without it."""
+    iterator gives them, re-raises a producer's error in the consumer,
+    stops its thread on ``close()`` and when the loop leaves an epoch early,
+    and leaves a trainer's losses as they are without it."""
     _configure(trained["root"], img_width=24)
     ds = DiskDatasetProvider().dataset(24)
     plain = [b.indices.copy() for b in ds.train.new_default_iterator(8, seed=5)]
@@ -211,13 +214,33 @@ def test_prefetch_keeps_the_batch_stream(trained, monkeypatch):
     with pytest.raises(ValueError, match="producer failed"):
         next(it)
 
+    def endless():
+        while True:
+            yield np.zeros(4)
+
+    with prefetch.PrefetchIterator(endless(), depth=2) as it:
+        assert next(it).shape == (4,)
+    assert not it._thread.is_alive()
+
+    def prefetch_threads():
+        return [t for t in threading.enumerate() if t.name == "PrefetchIterator"]
+
+    assert not prefetch_threads()
+    tcf.set("timeout_minutes", 1e-9)  # the loop leaves after its first step
+    early = ttrainer.SingleNetTrainer(ds, seed=0, device="cpu")
+    early.train()
+    assert len(early.losses()) == 1
+    assert not prefetch_threads()
+    tcf.set("timeout_minutes", 0)
+
     def train():
         t = ttrainer.SingleNetTrainer(ds, seed=0, device="cpu")
         t.train()
         return t.losses()
 
     with_thread = train()
-    monkeypatch.setattr(ttrainer, "PrefetchIterator", lambda batches, depth: batches)
+    monkeypatch.setattr(ttrainer, "PrefetchIterator",
+                        lambda batches, depth: contextlib.nullcontext(batches))
     np.testing.assert_array_equal(train(), with_thread)
 
 
