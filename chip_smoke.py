@@ -43,8 +43,8 @@ Phases (each checked; any failure exits non-zero):
      (the 12 px stage) on one frame; the launch counts are reset just
      before and read just after each detect call; the batch walls (host
      NMS included) with ``native.available()``;
-  10. card vs CPU in crop mode: one 256x320 frame at scale factor 1.02
-     (25,534 windows, 119 levels), f32 with TF32 off, with the default
+  10. card vs CPU in crop mode: one 256x320 frame at scale factor 1.04
+     (13,367 windows, 61 levels), f32 with TF32 off, with the default
      kernels and again with ``dyn_reextract="on"``;
   11. K3 (csrc/cluster.cu) against its plain version on the 16 VGA frames'
      last-stage survivor boxes and alive masks: from an open-capacity
@@ -192,7 +192,28 @@ Phases (each checked; any failure exits non-zero):
   28. the tune app in process: ``TuneCascadeApp`` with random draws over
      the tune-cascade keys without ``cascade_n_nets`` on phase 26's corpus
      and cache, 2 sessions at a fixed seed, none failed, a global best,
-     the configuration restored; a second app resumes from the state file.
+     the configuration restored; a second app resumes from the state file;
+  29. the appended Inception stage: phase 18's cut recipe with
+     ``append_inception`` and the InceptionV3 fixture archive
+     (``random_state_dict(3)`` converted; frozen trunk, embed-once), its
+     corpus cut to 1,000/3,000 and the mined windows once so that the
+     299 px rendering stays under about 2 GB (bytes, embed rate and the
+     head's s/step printed), with the embedded rows' scale and a plain
+     logistic head on raw and on per-feature standardized rows (why the
+     recipe's head diverges on this trunk); the 4-stage cascade on the 16
+     VGA YUV frames (batch wall, survivors per stage, K1 launches per
+     launch shape, trunk device ms), counted as the other paths; card
+     against CPU on 1 frame, and the Inception stage's first rows of that
+     card run again on the CPU: the trunk's 2048-wide embeddings in bf16
+     and in f32 (TF32 off; their row-to-row part too), and the stage's
+     logits and probabilities before the threshold; the compact trunk
+     trained end to end with augmentation (s/step over 10 synchronised
+     updates); a static bundle (1 frame a call, 1 rung) equal to the live
+     detector; K1 at 299 px (banded) held against its plain version at
+     every shape those runs launched it at (one ``kernels`` entry per
+     shape, with its launches), at 16 frames x 64 boxes and 1 frame x 256
+     boxes (listed with 0 launches), and one launch of 8,192 boxes (over
+     2^31 values) at its last boxes.
 
 Phases 19 and 20 run their CPU legs on 1 fold and 2 scenes (2 and 4 until
 phases 26-28 came), to keep the script's time.
@@ -208,7 +229,7 @@ its launches on its path, error, times and bound (K1 once for each path,
 at that path's shapes; K2, K1's re-extraction and K1's stage 0 also for the
 FDDB app; K1 and K3 also for phase 22's dynamic bundle, K2 for its
 crop-mode bundle; K1 for phase 27's visualizer, once for each dispatch
-shape); the line before that is the card's name and power limit. Without
+shape; K1 at 299 px for phase 29, once for each held shape); the line before that is the card's name and power limit. Without
 CUDA the script prints a message to stderr and exits 2.
 """
 
@@ -234,7 +255,9 @@ DENSE_HW = (450, 450)
 DENSE_WSF = 1.005
 DENSE_WINDOWS = 131903
 DENSE_CAPS_BY_SIZE = {24: 16512, 48: 4224}  # the dense path's default capacities
-CROP_CHECK = (256, 320, 1.02)  # card-vs-CPU crop-mode frame: 25,534 windows
+# card-vs-CPU crop-mode frame: 13,367 windows over 61 levels (at 1.02, until
+# phase 29 came, 25,534 over 119: the CPU legs halved to keep the script's time)
+CROP_CHECK = (256, 320, 1.04)
 MAX_BAD_FRACTION = 1e-4  # kernel vs plain: values allowed to differ, each by at most 1
 BORDERLINE_FRACTION = 0.02  # survivor flips allowed between two runs
 
@@ -423,7 +446,7 @@ def phase_k1(torch, label, planes, coords, caps_by_size):
     gen = torch.Generator(device=planes.device).manual_seed(0)
     out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     for size, n in caps_by_size.items():
-        per_block, smem = windows_cuda.launch_geometry(size, size, 3)
+        per_block, band, smem = windows_cuda.launch_geometry(size, size, 3)
         ids = torch.randint(0, coords.shape[0], (n_frames, n), generator=gen,
                             device=planes.device)
         sy, sx = windows.sample_positions(coords[ids], img_h, img_w, size, size)
@@ -441,9 +464,10 @@ def phase_k1(torch, label, planes, coords, caps_by_size):
         bound_ms, bound_by = _bound((planes, sy, sx), (got,), got.numel())
         print("K1 ({}) {}px x {} boxes x {} frames {}x{}: {} of {} values differ (max {}), "
               "kernel {:.4f} ms, plain {:.4f} ms, grid_sample {:.4f} ms, bound {:.4f} ms ({}; "
-              "{:.1%} of it); {} boxes per block, {} B of shared memory".format(
+              "{:.1%} of it); {} boxes per block, {} rows a block, {} B of shared "
+              "memory".format(
                   label, size, n, n_frames, img_h, img_w, n_bad, total, err, ms, pms, lib_ms,
-                  bound_ms, bound_by, bound_ms / ms, per_block, smem))
+                  bound_ms, bound_by, bound_ms / ms, per_block, band, smem))
         out["max_abs_err"] = max(out["max_abs_err"], err)
         out["ms"] += ms
         out["plain_ms"] += pms
@@ -1144,10 +1168,11 @@ def phase_k2p(torch, device, grid_sample_ms):
                       "bound_by": bound_by, "library_ms": grid_sample_ms}
 
 
-def _report_stages(torch, device, trainer, min_steps):
+def _report_stages(torch, device, trainer, min_steps, must_fall=None):
     """Per stage of a trained ``CascadeTrainer``: steps, loss first and
-    last (which must fall and stay finite), s/step over 10 synchronised
-    updates, validation results and re-weighting error."""
+    last (which must stay finite, and fall for the stages in
+    ``must_fall``, default all), s/step over 10 synchronised updates,
+    validation results and re-weighting error."""
     import math
 
     from rapidobjectdetectionusingcascadedcnns_torch import config as cf
@@ -1188,7 +1213,8 @@ def _report_stages(torch, device, trainer, min_steps):
                   float(losses.min()), s_step, val.get("accuracy", float("nan")),
                   val.get("recall", float("nan")), val.get("precision", float("nan")),
                   st.main_criteria, val.get(st.main_criteria, float("nan")), err))
-        assert losses[-1] < losses[0], ("loss did not fall", i, losses[0], losses[-1])
+        if must_fall is None or i in must_fall:
+            assert losses[-1] < losses[0], ("loss did not fall", i, losses[0], losses[-1])
 
 
 # a third positives, as in a face corpus with more backgrounds than faces
@@ -2592,6 +2618,552 @@ def phase_tune_app(torch, kind, card, work, trained):
         cf.restore(saved)
 
 
+# phase 29: phase 18's cut recipe with the appended Inception stage, its
+# corpus cut again so that the 299 px rendering stays under about 2 GB of
+# host memory (4,000 samples and the mined windows once, not 4 times:
+# 5,524 samples, 1.48 GB at 299 px)
+INC_POS, INC_NEG, INC_MINED = 1000, 3000, 1
+# (frames, boxes) at which K1 is held at 299 px beside the shapes the path
+# launched it at (the detector cuts the stage into chunks of
+# inception.rows_per_chunk() // frames boxes a frame, so it launches
+# neither of these)
+INC_K1_EXTRA_SHAPES = ((N_FRAMES, 64), (1, 256))
+INC_BIG_BOXES = 8192  # one K1 launch of more than 2^31 output values
+INC_TRAIN_STEPS = 10  # synchronised updates of the compact trunk trained end to end
+INC_COMPACT_SAMPLES = 1024  # its corpus: 819 training samples, one batch of 512
+INC_CMP_ROWS = 32  # the Inception stage's rows of the card run held against the CPU
+# card against CPU: bf16 embeddings and logits within 2% of each value plus
+# 1% of the largest magnitude (tests/test_torch_inception_training.py's
+# bound for the port's bf16 embeddings against JAX's); f32 embeddings (TF32
+# off) within the JAX package's bound against torch (rtol 1e-3, atol 5e-4,
+# tests/test_inception_v3.py), and their row-to-row part (each row less the
+# rows' mean: what depends on the window) within 5% of its largest value
+INC_BF16_RTOL, INC_BF16_ATOL_SHARE = 0.02, 0.01
+INC_F32_RTOL, INC_F32_ATOL = 1e-3, 5e-4
+INC_CENTRED_SHARE = 0.05
+
+
+@contextlib.contextmanager
+def _k1_launches_by_shape():
+    """K1's launches by launch shape while the block runs: the wrapper
+    counts each launch (``LAUNCHES``); this splits the count by the
+    launch's (frames, boxes, window size). Yields {(frames, boxes, size):
+    launches}."""
+    windows_cuda = _kernel_modules()[0]
+    real = windows_cuda.crop_and_resize_cuda
+    counts = {}
+
+    def counted(planes, sy, sx):
+        before = windows_cuda.LAUNCHES
+        out = real(planes, sy, sx)
+        key = tuple(int(n) for n in sy.shape)
+        counts[key] = counts.get(key, 0) + windows_cuda.LAUNCHES - before
+        return out
+
+    windows_cuda.crop_and_resize_cuda = counted
+    try:
+        yield counts
+    finally:
+        windows_cuda.crop_and_resize_cuda = real
+
+
+def _at_299(by_shape):
+    """{(frames, boxes): launches} of the 299 px launches."""
+    return {(f, n): k for (f, n, size), k in by_shape.items() if size == 299}
+
+
+@contextlib.contextmanager
+def _trunk_timer(torch):
+    """Device milliseconds of every Inception trunk call while the block
+    runs (CUDA events around each call, read once at the end). Yields
+    {"ms": ..., "calls": ..., "rows": ...}."""
+    from rapidobjectdetectionusingcascadedcnns_torch.models import inception
+
+    real = inception.apply_backbone
+    events, acc = [], {"ms": 0.0, "calls": 0, "rows": 0}
+
+    def timed(params, x, dtype=torch.bfloat16):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(params, x, dtype=dtype)
+        end.record()
+        events.append((start, end))
+        acc["calls"] += 1
+        acc["rows"] += int(x.shape[0])
+        return out
+
+    inception.apply_backbone = timed
+    try:
+        yield acc
+    finally:
+        inception.apply_backbone = real
+        torch.cuda.synchronize()
+        acc["ms"] = sum(a.elapsed_time(b) for a, b in events)
+
+
+def _inception_k1_big(torch, planes, coords):
+    """K1 at 299 px on INC_BIG_BOXES boxes of one frame, more than 2^31
+    output values: the last boxes, past that offset, equal the plain
+    version on the same boxes (64-bit box offsets)."""
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import windows, windows_cuda
+
+    gen = torch.Generator(device=planes.device).manual_seed(1)
+    ids = torch.randint(0, coords.shape[0], (1, INC_BIG_BOXES), generator=gen,
+                        device=planes.device)
+    sy, sx = windows.sample_positions(coords[ids], IMG_H, IMG_W, 299, 299)
+    sy, sx = sy.contiguous(), sx.contiguous()
+    got = windows_cuda.crop_and_resize_cuda(planes[:1].contiguous(), sy, sx)
+    tail = slice(INC_BIG_BOXES - 16, INC_BIG_BOXES)
+    ref = windows.resample_plain(planes[:1], sy[:, tail], sx[:, tail])
+    n_values = got.numel()
+    assert n_values > 2 ** 31, n_values
+    n_bad, total, err = _compare(got[:, tail], ref, "K1 299 px past 2^31 values")
+    print("K1 299 px, one launch of {} boxes ({} values, over 2^31): its last 16 boxes "
+          "against the plain version, {} of {} values differ (max {})".format(
+              INC_BIG_BOXES, n_values, n_bad, total, err))
+    del got, ref
+
+
+def _inception_head_scale(torch, device, inc):
+    """Why the recipe's head diverges on the fixture trunk: the embedded
+    training rows' scale (mean |f|, the largest eigenvalue of their second
+    moment, which sets the step a gradient method can take, and their
+    spread from row to row), then a plain logistic head (2048 -> 2, zero
+    weights, the recipe's momentum SGD, learning rate and batch, as many
+    steps as the stage took) on the raw rows and on the rows standardized
+    per feature. The standardized head's loss must fall."""
+    import math
+
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+
+    x = torch.as_tensor(inc.ds.train.images, device=device)
+    y = torch.as_tensor(inc.ds.train.labels, device=device).long()
+    lam = float(torch.linalg.eigvalsh(x.T @ x / len(x))[-1])
+    lr, momentum, batch = cf.get("learning_rate_init"), cf.get("momentum"), cf.get("batch_size")
+    steps = len(inc.losses())
+
+    def fit(rows):
+        gen = torch.Generator(device=device).manual_seed(0)
+        w = torch.zeros(rows.shape[1], 2, device=device, requires_grad=True)
+        b = torch.zeros(2, device=device, requires_grad=True)
+        opt = torch.optim.SGD([w, b], lr=lr, momentum=momentum)
+        losses = []
+        for _ in range(steps):
+            idx = torch.randint(0, len(rows), (batch,), generator=gen, device=device)
+            loss = torch.nn.functional.cross_entropy(rows[idx] @ w + b, y[idx])
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+        return losses
+
+    raw = fit(x)
+    std = fit((x - x.mean(0)) / (x.std(0) + 1e-6))
+    print("inception head: the embedded training rows ({} x {}) have mean |f| {:.4f}, the "
+          "second moment's largest eigenvalue {:.6g} (learning rate x eigenvalue / 4 = {:.6g} "
+          "against momentum SGD's stability limit 2 (1 + {}) = {:.2f}) and a row-to-row spread "
+          "of {:.4f} a feature (mean std over the rows); a logistic head at the recipe's "
+          "momentum SGD (lr {}, batch {}, {} steps): raw rows loss first {:.6f} last {:.6g} "
+          "(max {:.6g}), rows standardized per feature first {:.6f} last {:.6f} (min "
+          "{:.6f})".format(tuple(x.shape)[0], tuple(x.shape)[1], float(x.abs().mean()), lam,
+                           lr * lam / 4, momentum, 2 * (1 + momentum), float(x.std(0).mean()),
+                           lr, batch, steps, raw[0], raw[-1], max(raw), std[0], std[-1],
+                           min(std)))
+    assert all(math.isfinite(v) for v in std) and statistics.mean(std[-10:]) < std[0], std
+
+
+def _inception_train(torch, device, tool, archive, kind, card):
+    """29b. Phase 18's cut recipe with ``append_inception`` and the v3
+    fixture archive: three custom stages, then the frozen trunk's
+    embed-once head training. Returns (model, trainer, provider)."""
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.train import cascade_trainer as ct
+    from rapidobjectdetectionusingcascadedcnns_torch.train import trainer as tr
+    from rapidobjectdetectionusingcascadedcnns_torch.utils import log
+
+    tool.flagship_config(cf)
+    recipe = _quietly(tool.apply_recorded_overrides, cf)
+    cf.set("epochs_total", FLAG_EPOCHS)
+    cf.set("append_inception", True)
+    cf.set("inception_weights_path", archive)
+    cut = dict(recipe, hard_negatives=INC_MINED, hard_positives=INC_MINED)
+    t0 = time.perf_counter()
+    provider = _quietly(tool.flagship_provider, INC_POS, INC_NEG, recipe["seed"], cut)
+    corpus_s = time.perf_counter() - t0
+    timing = {}
+    real_dataset, real_embed = provider.dataset, tr.SingleNetTrainer._embed_splits_through_trunk
+
+    def dataset(size):
+        t = time.perf_counter()
+        out = real_dataset(size)
+        timing.setdefault("dataset", {})[size] = time.perf_counter() - t
+        return out
+
+    def embed(self):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real_embed(self)
+        timing["embed"] = (time.perf_counter() - t, self.ds.n_samples)
+
+    provider.dataset = dataset
+    tr.SingleNetTrainer._embed_splits_through_trunk = embed
+    trainer = ct.CascadeTrainer(provider, seed=recipe["seed"], device=device)
+    log.set_echo(False)
+    try:
+        t0 = time.perf_counter()
+        model = trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        log.set_echo(True)
+        tr.SingleNetTrainer._embed_splits_through_trunk = real_embed
+        provider.dataset = real_dataset
+    assert model.n_nets == 4 and trainer.sizes == [12, 24, 48, 299], trainer.sizes
+    inc = trainer.stage_trainers[-1]
+    assert inc._frozen_trunk and inc._augment is None and inc.ds.train.images.shape[1] == 2048
+    rendered = provider._images[299]
+    embed_s, n_embedded = timing["embed"]
+    print("inception: corpus of {} samples ({}/{} and the mined windows x{}) in {:.2f} s; "
+          "its 299 px rendering {} bytes, dataset {:.2f} s (render and standardization "
+          "statistics); 4 stages trained in {:.2f} s on {} [{}]".format(
+              len(provider._labels), INC_POS, INC_NEG, INC_MINED, corpus_s, rendered.nbytes,
+              timing["dataset"][299], train_s, kind, card))
+    assert rendered.nbytes < 2.2e9, rendered.nbytes
+    # the warm trunk: one chunk of the embed pass's rows, median of 5 calls
+    from rapidobjectdetectionusingcascadedcnns_torch.models import inception
+
+    rows = inception.rows_per_chunk()
+    trunk = inception.cast_backbone(inc.state.params["backbone"], torch.bfloat16)
+    x = torch.as_tensor(rendered[:rows], device=device).float()
+    x = (x - inc._window_mean) / inc._window_std
+    with torch.no_grad():
+        warm_ms = _median_ms(lambda: inception.apply_backbone(trunk, x), torch, warmup=2,
+                             iters=5, reps=1)
+    print("inception: embed-once through the frozen InceptionV3 trunk (bf16): {} windows in "
+          "{:.3f} s = {:.1f} windows/s (the pass, its chunks' first cuDNN plans included); "
+          "warm, {} rows a call: {:.3f} ms = {:.1f} windows/s".format(
+              n_embedded, embed_s, n_embedded / embed_s, rows, warm_ms, rows / warm_ms * 1e3))
+    del x
+    # the head's loss on the fixture trunk rises: _inception_head_scale
+    # shows why, and holds a head on the same rows standardized to falling
+    _report_stages(torch, device, trainer, min_steps=50, must_fall={0, 1, 2})
+    _inception_head_scale(torch, device, inc)
+    print("inception: combined cascade on the test split {}".format(
+        {k: round(v, 4) for k, v in trainer.combined_results["test"].items()}))
+    return model, trainer, provider
+
+
+# The cut recipe's cascade keeps about 90% of the VGA windows at stage 0
+# and its last two stages pass what reaches them, so every frame saturates
+# the default capacities, and exact survivor sets would climb the ladder
+# to 5,061 rows a frame through the trunk. Phase 29 keeps the default
+# capacities without re-dispatch: truncated results (the rank compaction
+# keeps each stage's strongest windows), the trunk bounded at 16 x 256
+# rows a batch.
+INC_SETTINGS = {"cascade_saturation_redispatch": False}
+
+
+def _inception_detect(torch, model, frames, kind, card):
+    """29c. The 4-stage cascade on the 16 VGA YUV frames at the default
+    capacities, without re-dispatch: the launch counts are reset just
+    before and read just after the counted batch. Returns K1's 299 px
+    launches by (frames, boxes)."""
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+
+    windows_cuda, windows_sched_cuda, windows_dyn_cuda, nms_cuda = _kernel_modules()
+    det = cascade.CascadeDetector(model)
+    _quietly(det.detect_batch_yuv420, frames)  # warm-up (cuDNN/cuBLAS plans)
+    det.redispatches = 0
+    torch.cuda.synchronize()
+    _reset_launches()
+    with _k1_launches_by_shape() as by_shape, _trunk_timer(torch) as trunk:
+        t0 = time.perf_counter()
+        results = _quietly(det.detect_batch_yuv420, frames)
+        counted_s = time.perf_counter() - t0
+    k1 = windows_cuda.LAUNCHES
+    assert _at_299(by_shape) and sum(by_shape.values()) == k1, (by_shape, k1)
+    assert windows_sched_cuda.LAUNCHES == windows_dyn_cuda.LAUNCHES == nms_cuda.LAUNCHES == 0
+    for r in results:
+        s = r.n_survivors_per_stage
+        assert r.n_windows == VGA_WINDOWS and len(s) == 4 and s[0] >= s[1] >= s[2] >= s[3], s
+        assert r.boxes.ndim == 2 and r.boxes.shape[1] == 4 and bool((r.boxes == r.boxes).all())
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _quietly(det.detect_batch_yuv420, frames)
+        walls.append(time.perf_counter() - t0)
+    print("inception VGA: survivors per stage per frame {}".format(
+        [r.n_survivors_per_stage for r in results]))
+    print("inception VGA (4 stages, bf16, capacities {}, no re-dispatch): 16-frame batch "
+          "{:.4f} s median of {} "
+          "(counted {:.4f} s); re-dispatches {}; K1 launches by (frames, boxes, window size) "
+          "{}; the trunk {} calls over {} rows, {:.3f} device ms; detections per frame {}; on "
+          "{} [{}]".format(
+              cascade.default_capacity_schedule(VGA_WINDOWS, 4),
+              statistics.median(walls), [round(x, 4) for x in walls], counted_s,
+              det.redispatches, dict(sorted(by_shape.items())), trunk["calls"], trunk["rows"],
+              trunk["ms"], [len(r.boxes) for r in results], kind, card))
+    return _at_299(by_shape)
+
+
+@contextlib.contextmanager
+def _first_inception_rows(rows):
+    """The first call of an Inception stage on windows while the block
+    runs: its parameters and configuration, and its first ``rows`` inputs
+    (standardized windows and incoming bottlenecks) and outputs, copied.
+    Yields that dict, filled when the block ends."""
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cnn
+
+    real, seen = cnn.apply_stage, {}
+
+    def spy(params, cfg, x, bottleneck_in=None, **kw):
+        out = real(params, cfg, x, bottleneck_in, **kw)
+        if cfg.backbone == "inception" and x.dim() == 4 and not seen:
+            seen.update(params=params, cfg=cfg, x=x[:rows].clone(),
+                        bneck=None if bottleneck_in is None else bottleneck_in[:rows].clone(),
+                        **{k: out[k][:rows].clone() for k in ("logits", "probs")})
+        return out
+
+    cnn.apply_stage = spy
+    try:
+        yield seen
+    finally:
+        cnn.apply_stage = real
+
+
+def _close(got, ref, rtol, atol):
+    """(max |got - ref|, whether every value is within atol + rtol |ref|)."""
+    diff = (got - ref).abs()
+    return float(diff.max()), bool((diff <= atol + rtol * ref.abs()).all())
+
+
+def _inception_card_vs_cpu(torch, model, frames):
+    """29d. One frame on the card and on the CPU, the same model (bf16):
+    survivor flips within the borderline share, the final boxes' deltas.
+    Then the Inception stage's first INC_CMP_ROWS rows of the card run
+    (real 299 px windows) again on the CPU: the trunk's embeddings in bf16
+    (the detector's pre-cast weights) and in f32 with TF32 off (the
+    masters), whose row-to-row part would show a trunk that ignored its
+    input, and the stage's logits and probabilities before the threshold.
+    Returns K1's 299 px launches by (frames, boxes) in the card run."""
+    import numpy as np
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade, cnn, inception
+
+    det = cascade.CascadeDetector(model)
+    _reset_launches()
+    with _k1_launches_by_shape() as by_shape, _first_inception_rows(INC_CMP_ROWS) as first:
+        gpu = _quietly(det.detect_batch_yuv420, frames[:1])[0]
+    assert sum(by_shape.values()) == _kernel_modules()[0].LAUNCHES, by_shape
+    t0 = time.perf_counter()
+    cpu = _quietly(cascade.CascadeDetector(model.to("cpu")).detect_batch_yuv420, frames[:1])[0]
+    cpu_s = time.perf_counter() - t0
+    flips, allowed, ids_cpu, ids_gpu = _flips(cpu, gpu)
+    delta = None
+    if len(cpu.boxes) == len(gpu.boxes) and len(cpu.boxes):
+        delta = float(np.abs(np.asarray(_sorted_rows(cpu.boxes))
+                             - np.asarray(_sorted_rows(gpu.boxes))).max())
+    print("inception card vs cpu (bf16, 1 frame, cpu {:.2f} s): survivors cpu {} gpu {}, flips "
+          "{} (allowed {:.1f}); final boxes cpu {} gpu {}, max |box delta| {}; survivors per "
+          "stage cpu {} gpu {}".format(cpu_s, len(ids_cpu), len(ids_gpu), sorted(flips),
+                                       allowed, len(cpu.boxes), len(gpu.boxes), delta,
+                                       cpu.n_survivors_per_stage, gpu.n_survivors_per_stage))
+    assert len(flips) <= allowed, flips
+
+    cfg, x = first["cfg"], first["x"]
+    on_cpu = cnn.tree_map(lambda t: t.cpu(), first["params"])
+    masters = model.stage_params[-1]["backbone"]
+    with torch.no_grad():
+        bf_gpu = inception.apply_backbone(first["params"]["backbone"], x, dtype=cfg.compute_dtype)
+        bf_cpu = inception.apply_backbone(on_cpu["backbone"], x.cpu(), dtype=cfg.compute_dtype)
+        tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            f32_gpu = inception.apply_backbone(masters, x, dtype=torch.float32).cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        f32_cpu = inception.apply_backbone(cnn.tree_map(lambda t: t.cpu(), masters), x.cpu(),
+                                           dtype=torch.float32)
+        # the stage on the CPU's embeddings: its head alone (2-D rows)
+        out_cpu = cnn.apply_stage(on_cpu, cfg, bf_cpu,
+                                  None if first["bneck"] is None else first["bneck"].cpu())
+    bf_gpu = bf_gpu.cpu()
+    bf_err, bf_ok = _close(bf_gpu, bf_cpu, INC_BF16_RTOL,
+                           INC_BF16_ATOL_SHARE * float(bf_cpu.abs().max()))
+    f32_err, f32_ok = _close(f32_gpu, f32_cpu, INC_F32_RTOL, INC_F32_ATOL)
+    centred_gpu, centred_cpu = f32_gpu - f32_gpu.mean(0), f32_cpu - f32_cpu.mean(0)
+    spread = float(centred_cpu.abs().max())
+    centred_err = float((centred_gpu - centred_cpu).abs().max())
+    logits_gpu, logits_cpu = first["logits"].cpu(), out_cpu["logits"]
+    logit_err, logit_ok = _close(logits_gpu, logits_cpu, INC_BF16_RTOL,
+                                 INC_BF16_ATOL_SHARE * float(logits_cpu.abs().max()))
+    threshold = cascade.resolve_thresholds(model.n_nets)[-1]
+    p_gpu, p_cpu = first["probs"].cpu()[:, 1], out_cpu["probs"][:, 1]
+    decisions = int(((p_gpu > threshold) != (p_cpu > threshold)).sum())
+    print("inception card vs cpu, the Inception stage's first {} rows of the card run: trunk "
+          "bf16 max |diff| {:.6g} of max |f| {:.6g} (within 2% + 1% of max: {}); trunk f32 "
+          "(TF32 off) max |diff| {:.6g} (within rtol {} atol {}: {}), its row-to-row part max "
+          "|diff| {:.6g} of max {:.6g}; logits in [{:.6g}, {:.6g}], max |diff| {:.6g} (within "
+          "2% + 1% of max: {}); face probabilities in [{:.6g}, {:.6g}], max |diff| {:.6g}, "
+          "decisions at the stage's threshold {} that differ {}".format(
+              len(x), bf_err, float(bf_cpu.abs().max()), bf_ok, f32_err, INC_F32_RTOL,
+              INC_F32_ATOL, f32_ok, centred_err, spread, float(logits_cpu.min()),
+              float(logits_cpu.max()), logit_err, logit_ok, float(p_cpu.min()),
+              float(p_cpu.max()), float((p_gpu - p_cpu).abs().max()), threshold, decisions))
+    assert bf_ok and f32_ok and logit_ok, (bf_err, f32_err, logit_err)
+    assert centred_err <= INC_CENTRED_SHARE * spread, (centred_err, spread)
+    assert decisions <= BORDERLINE_FRACTION * len(x), decisions
+    return _at_299(by_shape)
+
+
+def _inception_compact_steps(torch, device, provider, kind, card):
+    """29e. The compact trunk trained end to end (no weights path),
+    augmentation on at 299 px: s/step over INC_TRAIN_STEPS synchronised
+    updates of the recipe's batch, on the first INC_COMPACT_SAMPLES of the
+    299 px corpus (their standardization statistics alone)."""
+    import math
+
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.data.dataset import Dataset
+    from rapidobjectdetectionusingcascadedcnns_torch.data.preprocessor import Preprocessor
+    from rapidobjectdetectionusingcascadedcnns_torch.train import train_step
+    from rapidobjectdetectionusingcascadedcnns_torch.train.trainer import SingleNetTrainer
+
+    cf.set("inception_weights_path", None)
+    images = provider._images[299][:INC_COMPACT_SAMPLES]
+    ds = Dataset(images, provider._labels[:INC_COMPACT_SAMPLES], cf.get("dataset_split"),
+                 Preprocessor(images, standardization=cf.get("standardization")),
+                 name="compact_299px")
+    st = SingleNetTrainer(ds, use_inception=True, seed=0, device=device)
+    assert not st._frozen_trunk and st._augment is not None
+    batch = st.ds.train.new_default_iterator(cf.get("batch_size"), seed=0).next_batch
+    images = torch.as_tensor(batch.images, device=device)
+    labels = torch.as_tensor(batch.labels, device=device).long()
+
+    def step():
+        return train_step.train_step(st.state, st.stage_config, st._loss_settings, st._augment,
+                                     images, labels, None, st._mean, st._std, st._host_gen,
+                                     st._device_gen)
+
+    first = float(step())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(INC_TRAIN_STEPS):
+        loss = step()
+        torch.cuda.synchronize()
+    s_step = (time.perf_counter() - t0) / INC_TRAIN_STEPS
+    assert math.isfinite(first) and math.isfinite(float(loss))
+    print("inception compact trunk trained end to end with augmentation: batch {} at 299 px, "
+          "{:.6f} s/step over {} synchronised updates, loss {:.6f} -> {:.6f}; on {} [{}]".format(
+              len(labels), s_step, INC_TRAIN_STEPS, first, float(loss), kind, card))
+
+
+def _inception_bundle(torch, model, frames, kind, card):
+    """29f. A static bundle of the Inception cascade (YUV, one frame a
+    call, one rung at the default capacities, which truncate as the live
+    detector does without re-dispatch), saved, loaded and served: equal
+    to the live detector at one frame a call. The launch counts are reset
+    just before and read just after the served frames. Returns K1's 299 px
+    launches by (frames, boxes) in them."""
+    import numpy as np
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch import serve
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+
+    caps = cascade.default_capacity_schedule(VGA_WINDOWS, 4)
+    cf.set("inference_batch_frames", 1)
+    work = tempfile.mkdtemp(prefix="chip_smoke_inception_")
+    try:
+        live = _quietly(cascade.CascadeDetector(model, capacity_schedule=caps)
+                        .detect_batch_yuv420, frames[:2])
+        t0 = time.perf_counter()
+        bundle = serve.export_detector(model, IMG_H, IMG_W, batch=1, yuv=True, capacities=caps,
+                                       n_rungs=1)
+        export_s = time.perf_counter() - t0
+        serve.save_bundle(bundle, work)
+        t0 = time.perf_counter()
+        served_det = serve.load_bundle(work)
+        load_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        _reset_launches()
+        with _k1_launches_by_shape() as by_shape:
+            served = _quietly(served_det.detect_batch, frames[:2])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    assert sum(by_shape.values()) == _kernel_modules()[0].LAUNCHES and _at_299(by_shape), by_shape
+    for a, b in zip(live, served):
+        np.testing.assert_array_equal(a.raw_window_ids, b.raw_window_ids)
+        np.testing.assert_array_equal(a.raw_confidences, b.raw_confidences)
+        np.testing.assert_array_equal(a.boxes, b.boxes)
+        assert a.n_survivors_per_stage == b.n_survivors_per_stage
+    assert bundle.meta["trunks"] == [None, None, None, "v3"], bundle.meta["trunks"]
+    print("inception bundle (static, YUV, 1 frame a call, capacities {}, 1 rung): export {:.2f} "
+          "s, load {:.2f} s; 2 frames served equal to the live detector (survivors {}), K1 "
+          "launches by (frames, boxes, window size) {}; on {} [{}]".format(
+              caps, export_s, load_s, [r.n_survivors_per_stage for r in served],
+              dict(sorted(by_shape.items())), kind, card))
+    return _at_299(by_shape)
+
+
+def phase_inception(torch, device, frames, kind, card):
+    """29. The appended Inception stage (ROADMAP Queue A item 7) on the
+    card: phase 18's cut recipe trained with ``append_inception`` on the
+    v3 fixture archive (frozen trunk, embed-once), the 4-stage cascade
+    detecting the 16 VGA frames, card against CPU, the compact trunk
+    trained end to end, a static bundle against the live detector, and K1
+    at 299 px (banded) against its plain version at every shape those runs
+    launched it at. Returns one ``(label, launches, measurement)`` for K1
+    per 299 px shape."""
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade, inception_v3
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import windows_cuda
+
+    t_phase = time.perf_counter()
+    tool = _load_tool("train_torch_flagship")
+    saved = cf.snapshot()
+    work = tempfile.mkdtemp(prefix="chip_smoke_v3_")
+    try:
+        archive = work + "/inception_v3_fixture.npz"
+        t0 = time.perf_counter()
+        params = inception_v3.convert_torchvision_state_dict(inception_v3.random_state_dict(3))
+        inception_v3.save_npz(archive, params)
+        print("inception: the v3 fixture archive ({} convs, {} parameters, random_state_dict(3) "
+              "converted) in {:.2f} s".format(len(params), inception_v3.n_params(params),
+                                              time.perf_counter() - t0))
+        model, trainer, provider = _inception_train(torch, device, tool, archive, kind, card)
+        for key, value in INC_SETTINGS.items():
+            cf.set(key, value)
+        batch_shapes = _inception_detect(torch, model, frames, kind, card)
+        one_frame = _inception_card_vs_cpu(torch, model, frames)
+        _inception_compact_steps(torch, device, provider, kind, card)
+        del trainer, provider
+        torch.cuda.empty_cache()
+        for shape, n in _inception_bundle(torch, model, frames, kind, card).items():
+            one_frame[shape] = one_frame.get(shape, 0) + n
+        # K1 against its plain version at every 299 px shape launched above
+        # (each entry with its own launches), then at the extra shapes
+        planes, coords = vga_k1_inputs(torch, device, cascade.CascadeDetector(model), frames)
+        per_block, band, smem = windows_cuda.launch_geometry(299, 299, 3)
+        shapes = [(s, n, "16-frame detection batch") for s, n in sorted(batch_shapes.items())]
+        shapes += [(s, n, "one-frame calls: the card-vs-CPU run and 2 bundle frames")
+                   for s, n in sorted(one_frame.items())]
+        shapes += [(s, 0, "an extra shape, not launched on the path")
+                   for s in INC_K1_EXTRA_SHAPES if s not in batch_shapes and s not in one_frame]
+        holds = []
+        for (n_frames, n_boxes), launches, what in shapes:
+            m = phase_k1(torch, "Inception, {}".format(what), planes[:n_frames].contiguous(),
+                         coords, {299: n_boxes})
+            holds.append(("{} frame(s) x {} boxes at 299 px, {}; banded: {} rows a block, {} "
+                          "B shared".format(n_frames, n_boxes, what, band, smem), launches, m))
+        _inception_k1_big(torch, planes, coords)
+        del planes
+    finally:
+        cf.restore(saved)
+        shutil.rmtree(work, ignore_errors=True)
+    print("phase 29: {:.1f} s".format(time.perf_counter() - t_phase))
+    return holds
+
+
 def _kernel_line(name, source, replaces, launches, m):
     return {
         "name": name,
@@ -2741,6 +3313,10 @@ def main() -> int:
     finally:
         shutil.rmtree(apps_work, ignore_errors=True)
 
+    # ---- 29. the appended Inception stage ---------------------------------------
+    torch.cuda.empty_cache()
+    k1_inception = phase_inception(torch, device, frames, kind, card)
+
     loaded = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "rapidobjectdetectionusingcascadedcnns_tpu")
@@ -2794,6 +3370,9 @@ def main() -> int:
     kernels += [_kernel_line("K1 crop_and_resize (train-app cascade, visualizer re-extraction, "
                              "{})".format(what), "resample.cu", "ops/windows_pallas.py:63",
                              launches, m) for what, launches, m in k1_vis]
+    kernels += [_kernel_line("K1 crop_and_resize (Inception cascade, {})".format(what),
+                             "resample.cu", "ops/windows_pallas.py:63", launches, m)
+                for what, launches, m in k1_inception]
     if fddb_app["unscheduled"]:
         kernels.append(_kernel_line(
             "K1 crop_and_resize (flagship, FDDB app stage 0 at the unscheduled sizes {}, "

@@ -46,7 +46,20 @@
 //      bulk copy keeps the threads free of store addressing and writes
 //      whole lines.
 // Index arithmetic is 32-bit inside a block and advances without division;
-// only the frame and box offsets are 64-bit. Frames of 1 to 4 channels.
+// only the frame and box offsets are 64-bit, so one launch may write more
+// than 2^31 values (8,007 boxes of 299 px). Frames of 1 to 4 channels.
+//
+// Banded launch (windows too large to stage whole: a 3-channel box above
+// 97 px needs more than a block's 227 KB, 2,157,584 bytes at 299 px): a
+// block takes one box and a band of consecutive output rows [r0, r0 +
+// band), grid (boxes, ceil(out_h / band)). It stages the band's row taps,
+// all the box's column taps, the band's bf16 intermediate (band x 2 out_w
+// x C) and the band's f32 output tile, and runs the same two passes, so
+// every value is computed exactly as above. The band's output is
+// contiguous but not 16-byte aligned in general (a 299 px box is
+// 1,072,812 bytes, a row 3,588), so the threads store it value by value,
+// consecutive threads to consecutive addresses. The wrapper chooses the
+// band (windows_cuda.launch_geometry).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,39 +91,45 @@ __device__ __forceinline__ void axis_taps(const float* __restrict__ s, int count
   }
 }
 
-// kC: the channel count (1 to 4; 3 for the cascade's frames).
-template <int kC>
+// kC: the channel count (1 to 4; 3 for the cascade's frames). kBanded: the
+// banded launch (one box a block, rows [blockIdx.y * band, + band)); else
+// band == out_h and a block takes per_block whole boxes.
+template <int kC, bool kBanded>
 __global__ void __launch_bounds__(kThreads)
     resample_kernel(const __nv_bfloat16* __restrict__ planes,
                     const float* __restrict__ sy, const float* __restrict__ sx,
                     float* __restrict__ out, long long boxes, int n, int h,
-                    int w, int out_h, int out_w, int per_block) {
+                    int w, int out_h, int out_w, int per_block, int band) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int per_box = out_h * out_w * kC;
   const long long box0 = (long long)blockIdx.x * per_block;
-  const int nb = (int)min((long long)per_block, boxes - box0);
-  const int rows = nb * out_h;  // ry = j * out_h + oy over the block's boxes
+  const int nb = kBanded ? 1 : (int)min((long long)per_block, boxes - box0);
+  const int r0 = kBanded ? (int)blockIdx.y * band : 0;
+  const int brows = kBanded ? min(band, out_h - r0) : out_h;  // rows of a box here
+  const int rows = nb * brows;  // ry = j * brows + (oy - r0) over the block's boxes
 
-  // shared layout (sized for per_block boxes): output tile; per row its
-  // taps, its box in the block and that box's frame; per column its taps;
-  // the bf16 intermediate
+  // shared layout (sized for per_block boxes of band rows): output tile;
+  // per row its taps, its box in the block and that box's frame; per
+  // column its taps; the bf16 intermediate
   float* tile = reinterpret_cast<float*>(smem);
-  int* row_lo = reinterpret_cast<int*>(tile + per_block * per_box);
-  int* row_hi = row_lo + per_block * out_h;
-  float* row_w0 = reinterpret_cast<float*>(row_hi + per_block * out_h);
-  float* row_w1 = row_w0 + per_block * out_h;
-  int* row_box = reinterpret_cast<int*>(row_w1 + per_block * out_h);
-  int* row_frame = row_box + per_block * out_h;
-  int* col_lo = row_frame + per_block * out_h;
+  int* row_lo = reinterpret_cast<int*>(tile + per_block * band * out_w * kC);
+  int* row_hi = row_lo + per_block * band;
+  float* row_w0 = reinterpret_cast<float*>(row_hi + per_block * band);
+  float* row_w1 = row_w0 + per_block * band;
+  int* row_box = reinterpret_cast<int*>(row_w1 + per_block * band);
+  int* row_frame = row_box + per_block * band;
+  int* col_lo = row_frame + per_block * band;
   int* col_hi = col_lo + per_block * out_w;
   float* col_w0 = reinterpret_cast<float*>(col_hi + per_block * out_w);
   float* col_w1 = col_w0 + per_block * out_w;
   __nv_bfloat16* inter = reinterpret_cast<__nv_bfloat16*>(col_w1 + per_block * out_w);
 
-  axis_taps(sy + box0 * out_h, rows, h, row_lo, row_hi, row_w0, row_w1);
+  // a whole-box block's rows are its boxes' rows back to back; a band's are
+  // rows r0.. of one box: either way consecutive entries of sy
+  axis_taps(sy + box0 * out_h + r0, rows, h, row_lo, row_hi, row_w0, row_w1);
   axis_taps(sx + box0 * out_w, nb * out_w, w, col_lo, col_hi, col_w0, col_w1);
   for (int t = threadIdx.x; t < rows; t += blockDim.x) {
-    const int j = t / out_h;
+    const int j = kBanded ? 0 : t / out_h;
     row_box[t] = j;
     row_frame[t] = (int)((box0 + j) / n);
   }
@@ -179,9 +198,9 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  const int n_out = nb * per_box;
-  float* dst = out + box0 * per_box;
-  if ((per_box & 3) == 0) {
+  const int n_out = rows * out_w * kC;
+  float* dst = out + box0 * per_box + (long long)r0 * out_w * kC;
+  if (!kBanded && (per_box & 3) == 0) {
     // make the tile's generic-proxy writes visible to the bulk copy, then
     // one thread copies the block's contiguous output
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -207,37 +226,45 @@ __global__ void __launch_bounds__(kThreads)
 
 // planes (B, C, H, W) bf16 contiguous; sy (B, N, out_h) and sx (B, N, out_w)
 // f32 contiguous; out (B, N, out_h, out_w, C) f32, allocated by the caller
-// (its base 16-byte aligned, as every CUDA allocation is). boxes_per_block
-// and smem_bytes are the wrapper's launch geometry
-// (windows_cuda.launch_geometry): smem_bytes must equal
-// boxes_per_block * (8 * out_h * out_w * C + 24 * out_h + 16 * out_w), else
+// (its base 16-byte aligned, as every CUDA allocation is). boxes_per_block,
+// band and smem_bytes are the wrapper's launch geometry
+// (windows_cuda.launch_geometry): band == out_h for whole boxes, else
+// boxes_per_block == 1 and the launch is banded; smem_bytes must equal
+// boxes_per_block * (8 * band * out_w * C + 24 * band + 16 * out_w), else
 // the call launches nothing and returns cudaErrorInvalidValue. Launches on
 // `stream`, allocates nothing, does not synchronise. Returns
 // cudaGetLastError() of the launch (0 on success).
 extern "C" int rodc_resample(const void* planes, const void* sy,
                              const void* sx, void* out, int b, int n, int c,
                              int h, int w, int out_h, int out_w,
-                             int boxes_per_block, int smem_bytes, void* stream) {
+                             int boxes_per_block, int band, int smem_bytes,
+                             void* stream) {
   const long long boxes = (long long)b * n;
   if (boxes == 0 || (long long)out_h * out_w * c == 0) {
     return 0;
   }
+  const bool banded = band < out_h;
   const long long need = (long long)boxes_per_block *
-                         (8LL * out_h * out_w * c + 24LL * out_h + 16LL * out_w);
-  if (boxes_per_block < 1 || need != smem_bytes) {
+                         (8LL * band * out_w * c + 24LL * band + 16LL * out_w);
+  if (boxes_per_block < 1 || band < 1 || band > out_h || need != smem_bytes ||
+      (banded && boxes_per_block != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   const long long blocks = (boxes + boxes_per_block - 1) / boxes_per_block;
-  if (blocks > 0x7fffffffLL) {
+  const int bands = (out_h + band - 1) / band;
+  if (blocks > 0x7fffffffLL || bands > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  void (*const kernels[4])(const __nv_bfloat16*, const float*, const float*, float*,
-                           long long, int, int, int, int, int, int) = {
-      resample_kernel<1>, resample_kernel<2>, resample_kernel<3>, resample_kernel<4>};
+  using Kernel = void (*)(const __nv_bfloat16*, const float*, const float*, float*,
+                          long long, int, int, int, int, int, int, int);
+  const Kernel whole[4] = {resample_kernel<1, false>, resample_kernel<2, false>,
+                           resample_kernel<3, false>, resample_kernel<4, false>};
+  const Kernel band_kernels[4] = {resample_kernel<1, true>, resample_kernel<2, true>,
+                                  resample_kernel<3, true>, resample_kernel<4, true>};
   if (c < 1 || c > 4) {
     return (int)cudaErrorInvalidValue;
   }
-  const auto kernel = kernels[c - 1];
+  const Kernel kernel = banded ? band_kernels[c - 1] : whole[c - 1];
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -245,8 +272,19 @@ extern "C" int rodc_resample(const void* planes, const void* sy,
       return (int)err;
     }
   }
-  kernel<<<(unsigned int)blocks, kThreads, smem_bytes, (cudaStream_t)stream>>>(
+  if (banded) {
+    // the band is sized for several blocks an SM: ask for the largest
+    // shared-memory carveout, so the SM can hold them
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) {
+      return (int)err;
+    }
+  }
+  const dim3 grid((unsigned int)blocks, (unsigned int)bands);
+  kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)planes, (const float*)sy, (const float*)sx,
-      (float*)out, boxes, n, h, w, out_h, out_w, boxes_per_block);
+      (float*)out, boxes, n, h, w, out_h, out_w, boxes_per_block, band);
   return (int)cudaGetLastError();
 }

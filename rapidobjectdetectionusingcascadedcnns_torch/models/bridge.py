@@ -4,7 +4,10 @@ Parameters are converted, never re-drawn: a JAX stage pytree (numpy or jax
 arrays, ``{"conv": [{"W", "b"}], "fc1", "fc2"}``, conv weights in HWIO)
 becomes the same dictionary of float32 tensors, and the npz+json stage
 format of train/checkpoint.py:102-194 is read with numpy alone, so a
-checkpoint written by the JAX trainer runs in the port unchanged.
+checkpoint written by the JAX trainer runs in the port unchanged. An
+Inception stage's ``{"backbone", "fc2"}`` tree (the compact trunk or the
+``v3`` one) comes across the same way, its trunk's conv weights transposed
+once to OIHW (models/inception.py).
 """
 
 from __future__ import annotations
@@ -29,9 +32,12 @@ def params_from_numpy(tree, device=None) -> Params:
     on ``device`` (default: the CUDA card; ``"cpu"`` for the CPU)."""
     device = resolve_device(device)
     if "backbone" in tree:
-        raise NotImplementedError(
-            "the Inception backbone is not ported yet (ROADMAP Queue A item 7)"
-        )
+        from . import inception
+
+        return {
+            "backbone": inception.backbone_from_numpy(tree["backbone"], device),
+            "fc2": {k: _tensor(tree["fc2"][k], device) for k in ("W", "b")},
+        }
     return {
         "conv": [
             {"W": _tensor(layer["W"], device), "b": _tensor(layer["b"], device)}
@@ -48,10 +54,6 @@ def _dtype_from_name(name: str) -> torch.dtype:
 
 def stage_config_from_jax(cfg) -> StageConfig:
     """A JAX ``StageConfig`` (read by attribute, jax is not imported)."""
-    if getattr(cfg, "backbone", "custom") != "custom":
-        raise NotImplementedError(
-            "the Inception backbone is not ported yet (ROADMAP Queue A item 7)"
-        )
     return StageConfig(
         input_size=cfg.input_size,
         channels=cfg.channels,
@@ -64,6 +66,7 @@ def stage_config_from_jax(cfg) -> StageConfig:
         n_classes=cfg.n_classes,
         bottleneck_in_size=cfg.bottleneck_in_size,
         compute_dtype=_dtype_from_name(cfg.compute_dtype.__name__),
+        backbone=getattr(cfg, "backbone", "custom"),
     )
 
 
@@ -87,10 +90,6 @@ def cascade_model_from_jax_arrays(
 
 
 def _stage_config_from_json(d: dict) -> StageConfig:
-    if d.get("backbone", "custom") != "custom":
-        raise NotImplementedError(
-            "the Inception backbone is not ported yet (ROADMAP Queue A item 7)"
-        )
     return StageConfig(
         input_size=d["input_size"],
         channels=d["channels"],
@@ -103,6 +102,7 @@ def _stage_config_from_json(d: dict) -> StageConfig:
         n_classes=d["n_classes"],
         bottleneck_in_size=d["bottleneck_in_size"],
         compute_dtype=_dtype_from_name(d["compute_dtype"]),
+        backbone=d.get("backbone", "custom"),
     )
 
 
@@ -112,7 +112,9 @@ def load_stage(
     """Read one stage written by the JAX package's ``checkpoint.save_stage``:
     ``<path>.npz`` (path-flattened leaves plus ``__mean__``/``__std__``) and
     its ``<path>.json`` sidecar. Returns (params, config, mean, std, meta),
-    the parameters on ``device`` (default: the CUDA card)."""
+    the parameters on ``device`` (default: the CUDA card). An Inception
+    stage's trunk is read from its ``backbone/`` leaves, compact or ``v3``
+    (the JAX package's own reader rebuilds only the compact one)."""
     npz_path = path if path.endswith(".npz") else path + ".npz"
     with open(npz_path[:-4] + ".json") as f:
         meta = json.load(f)
@@ -121,6 +123,15 @@ def load_stage(
         flat = {k: data[k] for k in data.files}
     mean = flat.pop("__mean__")
     std = flat.pop("__std__")
+    if cfg.backbone == "inception":
+        from . import inception
+
+        trunk = {k[len("backbone/"):]: v for k, v in flat.items() if k.startswith("backbone/")}
+        tree = {
+            "backbone": inception.tree_from_flat(trunk),
+            "fc2": {"W": flat["fc2/W"], "b": flat["fc2/b"]},
+        }
+        return params_from_numpy(tree, device), cfg, mean, std, meta
     tree = {
         "conv": [
             {"W": flat["conv/{}/W".format(i)], "b": flat["conv/{}/b".format(i)]}

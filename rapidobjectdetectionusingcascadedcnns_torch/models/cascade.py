@@ -17,7 +17,11 @@ Per chunk of same-size frames, every stage runs once for all frames:
             row-bounded kernel K4 (ops/windows_dyn.py), one launch per
             stage for the whole chunk
   stage i:  CNN with the previous stage's bottleneck concat -> probs ->
-            alive mask and LAST/AVG/MULT confidence accumulation
+            alive mask and LAST/AVG/MULT confidence accumulation; an
+            Inception stage (299 px, ``append_inception``) re-extracts and
+            classifies its boxes in chunks whose windows and trunk
+            activations fit ``models/inception.CHUNK_BYTES`` (4 GiB), so
+            each of its K1 launches stays far below 2^31 values
   last:     one packed float32 row per frame leaves the device; NMS runs on
             the host (numpy/native groupRectangles), or with
             ``nms_on_device`` on the device as a tail of the same program:
@@ -71,21 +75,13 @@ class CascadeModel:
 
     @property
     def device(self) -> torch.device:
-        return self.stage_params[0]["fc1"]["W"].device
+        return self.stage_params[0]["fc2"]["W"].device
 
     def to(self, device) -> "CascadeModel":
         """A copy with every parameter on ``device`` (None: the CUDA card)."""
         device = resolve_device(device)
-
-        def move(p):
-            return {
-                "conv": [{k: v.to(device) for k, v in layer.items()} for layer in p["conv"]],
-                "fc1": {k: v.to(device) for k, v in p["fc1"].items()},
-                "fc2": {k: v.to(device) for k, v in p["fc2"].items()},
-            }
-
         return CascadeModel(
-            [move(p) for p in self.stage_params],
+            [cnn.tree_map(lambda t: t.to(device), p) for p in self.stage_params],
             list(self.stage_configs),
             list(self.stage_means),
             list(self.stage_stds),
@@ -320,6 +316,38 @@ def pin_host_scalars(graph) -> None:
             stack.extend(inputs)
 
 
+def _upper_bound(n) -> int:
+    """``n``, or for a size ``torch.export`` holds symbolic (the frame count
+    of a dynamic bundle) its upper bound."""
+    if isinstance(n, torch.SymInt):
+        return int(n.node.shape_env.bound_sympy(n.node.expr).upper)
+    return int(n)
+
+
+def _reextract(images, boxes, size: int, cap: int, resample_impl: str,
+               high_precision: bool, planes):
+    """(B, cap, size, size, C) windows of (B, cap, 4) boxes and the per-frame
+    K4 big-class overflow: K4 (``dyn_reextract="on"``) where its gate
+    admits the geometry, else K1 (0 overflow). A window K4 cannot stage
+    (the Inception stage's 299 px) raises its ``ValueError`` rather than
+    going to K1 in its place."""
+    b, img_h, img_w = images.shape[0], images.shape[1], images.shape[2]
+    wants_dyn = resample_impl == "pallas2dyn" and not high_precision
+    if wants_dyn:
+        from ..ops import windows_dyn_cuda
+
+        windows_dyn_cuda.launch_geometry(size, size, images.shape[3])
+    use_dyn = wants_dyn and windows_dyn.dyn_supported(img_h, img_w, size, size, cap)
+    if use_dyn:
+        wins, _n_big, overflow = windows_dyn.extract_rowbound(
+            images, boxes, size, size,
+            big_cap=windows_dyn.default_big_cap(cap, size, size, img_h),
+        )
+        return wins, overflow
+    wins = crop_and_resize_impl(images, boxes, size, size, high_precision, planes)
+    return wins, torch.zeros(b, dtype=torch.long, device=images.device)
+
+
 def _stage0_schedule(plan: PyramidPlan, size: int, resample_impl: str,
                      high_precision: bool):
     """The scheduled extraction plan of stage 0 (kernel K2), or None when
@@ -438,7 +466,6 @@ def cascade_core(
     n_stages = len(stage_configs)
     b = images.shape[0]
     images = images.float()
-    img_h = images.shape[1]
 
     # K1's bf16 planes, converted once for every re-extraction of the chunk
     planes = None if high_precision else to_planes_bf16(images)
@@ -471,30 +498,35 @@ def cascade_core(
         cfg_i = stage_configs[i]
         size_i = cfg_i.input_size
         boxes = coords_norm[window_ids].float()  # (B, cap, 4)
-        use_dyn = (
-            resample_impl == "pallas2dyn"
-            and not high_precision
-            and windows_dyn.dyn_supported(img_h, images.shape[2], size_i, size_i, cap)
-        )
-        if use_dyn:
-            wins, _n_big, overflow = windows_dyn.extract_rowbound(
-                images, boxes, size_i, size_i,
-                big_cap=windows_dyn.default_big_cap(cap, size_i, size_i, img_h),
-            )
-        else:
-            wins = crop_and_resize_impl(images, boxes, size_i, size_i, high_precision, planes)
-            overflow = torch.zeros(b, dtype=torch.long, device=images.device)
-        overflows.append(overflow)
         mean_i, std_i = stage_stats[i]
-        bneck_in = (
-            bottleneck.reshape(b * cap, -1) if cfg_i.bottleneck_in_size is not None else None
-        )
-        probs_i, bneck_i = _apply_stage_rows(
-            stage_params[i], cfg_i, wins.reshape(b * cap, size_i, size_i, -1),
-            bneck_in, mean_i, std_i, chunk,
-        )
-        bottleneck = bneck_i.reshape(b, cap, -1)
-        p_i = probs_i[:, 1].reshape(b, cap)
+        # boxes per frame handled at once: all of them, but for an Inception
+        # stage, whose 299 px windows and trunk activations are bounded by
+        # inception.rows_per_chunk (rows are independent: the same result)
+        step = cap
+        if cfg_i.backbone == "inception":
+            from . import inception
+
+            step = max(1, inception.rows_per_chunk(size_i) // _upper_bound(b))
+        probs_parts, bneck_parts, overflow = [], [], None
+        for s in range(0, cap, step):
+            n = min(step, cap - s)
+            wins, over = _reextract(
+                images, boxes[:, s : s + n], size_i, n, resample_impl, high_precision, planes
+            )
+            overflow = over if overflow is None else overflow + over
+            bneck_in = (
+                bottleneck[:, s : s + n].reshape(b * n, -1)
+                if cfg_i.bottleneck_in_size is not None else None
+            )
+            probs_c, bneck_c = _apply_stage_rows(
+                stage_params[i], cfg_i, wins.reshape(b * n, size_i, size_i, -1),
+                bneck_in, mean_i, std_i, chunk,
+            )
+            probs_parts.append(probs_c[:, 1].reshape(b, n))
+            bneck_parts.append(bneck_c.reshape(b, n, -1))
+        overflows.append(overflow)
+        bottleneck = bneck_parts[0] if len(bneck_parts) == 1 else torch.cat(bneck_parts, 1)
+        p_i = probs_parts[0] if len(probs_parts) == 1 else torch.cat(probs_parts, 1)
         alive = alive & (p_i > thresholds[i])
         if confidence_mode == cf.FINAL_CONFIDENCE_CALCULATION_AVG:
             conf = conf + p_i

@@ -21,13 +21,18 @@ is cast to f32 after the relu; the bottleneck concat is f32; fc2 runs in the
 compute dtype, is cast to f32 and then gets its f32 bias; softmax runs in
 f32. Convolutions and matmuls go to ``F.conv2d``/``torch.matmul``, as the
 JAX package leaves them to XLA.
+
+An Inception stage (``backbone="inception"``, the ``append_inception``
+option) is ``{"backbone": trunk, "fc2"}``: the trunk of models/inception.py
+in place of the conv stack and fc1, its 2048-wide output the hidden
+representation, then the same head.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,15 +55,17 @@ class StageConfig:
     n_classes: int = 2
     bottleneck_in_size: Optional[int] = None  # previous stage's fc1(+in) width
     compute_dtype: torch.dtype = torch.bfloat16
+    backbone: str = "custom"  # "custom" conv stack | "inception" trunk
 
     @classmethod
-    def from_config(cls, input_size: int, bottleneck_in_size: Optional[int] = None):
+    def from_config(
+        cls,
+        input_size: int,
+        bottleneck_in_size: Optional[int] = None,
+        backbone: str = "custom",
+    ):
         from .. import config as cf
 
-        if cf.get("append_inception"):
-            raise NotImplementedError(
-                "the Inception backbone is not ported yet (ROADMAP Queue A item 7)"
-            )
         dtype = (
             torch.bfloat16 if cf.get("compute_dtype") == "bfloat16" else torch.float32
         )
@@ -72,12 +79,23 @@ class StageConfig:
             fc1_size=cf.get("fc1_size"),
             bottleneck_in_size=bottleneck_in_size,
             compute_dtype=dtype,
+            backbone=backbone,
         )
 
     @property
+    def hidden_width(self) -> int:
+        """Width of the hidden ("fc1") representation before any concat."""
+        if self.backbone == "inception":
+            from . import inception
+
+            return inception.BOTTLENECK_TENSOR_SIZE
+        return self.fc1_size
+
+    @property
     def bottleneck_out_size(self) -> int:
-        """fc1 concatenated with the incoming bottleneck (net.py:139-146)."""
-        return self.fc1_size + (self.bottleneck_in_size or 0)
+        """The hidden representation concatenated with the incoming
+        bottleneck (net.py:139-146)."""
+        return self.hidden_width + (self.bottleneck_in_size or 0)
 
     def conv_output_hw(self) -> int:
         """Spatial size after the conv/pool stack (SAME padding)."""
@@ -99,10 +117,37 @@ def _glorot_uniform(generator: torch.Generator, shape, fan_in: int, fan_out: int
     return u * (2.0 * limit) - limit
 
 
+def tree_map(fn, tree):
+    """``fn`` applied to every tensor of a parameter tree (nested dicts and
+    lists), the structure kept."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def param_leaves(params: Params) -> List[torch.Tensor]:
+    """A stage's tensors in a fixed order: conv layers, fc1, fc2; for an
+    Inception stage the trunk's (``inception.flat_keys`` order), then fc2."""
+    if "backbone" in params:
+        from . import inception
+
+        return inception.backbone_leaves(params["backbone"]) + [
+            params["fc2"]["W"], params["fc2"]["b"]
+        ]
+    leaves = []
+    for layer in params["conv"]:
+        leaves += [layer["W"], layer["b"]]
+    return leaves + [params["fc1"]["W"], params["fc1"]["b"], params["fc2"]["W"], params["fc2"]["b"]]
+
+
 def init_stage(cfg: StageConfig, generator: torch.Generator) -> Params:
     """Glorot-uniform float32 master weights (the reference's
     ``xavier_initializer``, net_builder.py:38,85), zero biases, drawn from
     ``generator`` on its device."""
+    if cfg.backbone == "inception":
+        return _init_inception_stage(cfg, generator)
     params: Params = {"conv": [], "fc1": {}, "fc2": {}}
     in_ch = cfg.channels
     k = cfg.conv_kernel
@@ -129,11 +174,42 @@ def init_stage(cfg: StageConfig, generator: torch.Generator) -> Params:
     return params
 
 
+def _init_inception_stage(cfg: StageConfig, generator: torch.Generator) -> Params:
+    """Trunk and classifier head. The trunk is the weights at
+    ``cf.get("inception_weights_path")`` when that is set (the reference's
+    pretrained download, network/inception_builder.py:39-65, replaced by a
+    file the user provides), else the compact trunk drawn from
+    ``generator``; then fc2 is drawn."""
+    from .. import config as cf
+    from . import inception
+
+    weights_path = cf.get("inception_weights_path") if cf.has("inception_weights_path") else None
+    if weights_path:
+        backbone = inception.load_backbone_weights(weights_path, generator.device)
+    else:
+        backbone = inception.init_backbone(generator)
+    fc2_in = cfg.bottleneck_out_size
+    return {
+        "backbone": backbone,
+        "fc2": {
+            "W": _glorot_uniform(generator, (fc2_in, cfg.n_classes), fc2_in, cfg.n_classes),
+            "b": torch.zeros(cfg.n_classes),
+        },
+    }
+
+
 def cast_params(params: Params, cfg: StageConfig) -> Params:
     """Weights pre-cast to the compute dtype, so repeated ``apply_stage``
     calls do not re-read the f32 masters (the stage-2 fc1 alone is 151 MB).
     fc2's bias stays f32: it is added to the f32 logits."""
     cdt = cfg.compute_dtype
+    if cfg.backbone == "inception":
+        from . import inception
+
+        return {
+            "backbone": inception.cast_backbone(params["backbone"], cdt),
+            "fc2": {"W": params["fc2"]["W"].to(cdt), "b": params["fc2"]["b"].float()},
+        }
     return {
         "conv": [{k: v.to(cdt) for k, v in layer.items()} for layer in params["conv"]],
         "fc1": {k: v.to(cdt) for k, v in params["fc1"].items()},
@@ -175,9 +251,11 @@ def apply_stage(
 ) -> Dict[str, torch.Tensor]:
     """Forward pass.
 
-    ``x``: (N, H, W, C) float32, already standardized. Returns ``logits``
-    (N, 2), ``probs`` (N, 2) and ``bottleneck`` (N, bottleneck_out_size),
-    all float32.
+    ``x``: (N, H, W, C) float32, already standardized; for an Inception
+    stage also (N, 2048), rows the trunk already embedded (the frozen
+    trunk's embed-once training, train/trainer.py), where only the head
+    runs. Returns ``logits`` (N, 2), ``probs`` (N, 2) and ``bottleneck``
+    (N, bottleneck_out_size), all float32.
 
     Training passes the f32 master weights: the casts to the compute dtype
     happen here, so gradients reach the masters through them (the
@@ -188,15 +266,23 @@ def apply_stage(
     returned is the tensor before dropout.
     """
     cdt = cfg.compute_dtype
-    h = x.to(cdt).permute(0, 3, 1, 2)
-    for layer in params["conv"]:
-        h = _conv_same(h, layer["W"].to(cdt), cfg.conv_stride)
-        h = h + layer["b"].to(cdt)[:, None, None]
-        h = torch.relu(h)
-        h = _max_pool_same(h, cfg.pooling_size, cfg.pooling_stride)
-    h = h.permute(0, 2, 3, 1).flatten(1)  # no inferred size: a traced row count may be 0
-    fc1 = torch.matmul(h, params["fc1"]["W"].to(cdt)) + params["fc1"]["b"].to(cdt)
-    fc1 = torch.relu(fc1).float()
+    if cfg.backbone == "inception":
+        from . import inception
+
+        if x.dim() == 2:
+            fc1 = x.float()
+        else:
+            fc1 = inception.apply_backbone(params["backbone"], x, dtype=cdt)
+    else:
+        h = x.to(cdt).permute(0, 3, 1, 2)
+        for layer in params["conv"]:
+            h = _conv_same(h, layer["W"].to(cdt), cfg.conv_stride)
+            h = h + layer["b"].to(cdt)[:, None, None]
+            h = torch.relu(h)
+            h = _max_pool_same(h, cfg.pooling_size, cfg.pooling_stride)
+        h = h.permute(0, 2, 3, 1).flatten(1)  # no inferred size: a traced row count may be 0
+        fc1 = torch.matmul(h, params["fc1"]["W"].to(cdt)) + params["fc1"]["b"].to(cdt)
+        fc1 = torch.relu(fc1).float()
 
     if cfg.bottleneck_in_size is not None:
         if bottleneck_in is None:

@@ -47,11 +47,7 @@ class SingleNetDetector:
         self.device = resolve_device(device)
         self.stage_config = stage_config
         set_numerics(stage_config.compute_dtype)
-        moved = {
-            "conv": [{k: v.to(self.device) for k, v in layer.items()} for layer in params["conv"]],
-            "fc1": {k: v.to(self.device) for k, v in params["fc1"].items()},
-            "fc2": {k: v.to(self.device) for k, v in params["fc2"].items()},
-        }
+        moved = cnn.tree_map(lambda t: t.to(self.device), params)
         self.params = cnn.cast_params(moved, stage_config)
         self.mean = torch.as_tensor(mean, dtype=torch.float32, device=self.device)
         self.std = torch.as_tensor(std, dtype=torch.float32, device=self.device)

@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 # c_float.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "resample": ("rodc_resample", [_P, _P, _P, _P] + [_I] * 9 + [_P]),
+    "resample": ("rodc_resample", [_P, _P, _P, _P] + [_I] * 10 + [_P]),
     "sched": ("rodc_sched", [_P] * 5 + [_I] * 10 + [_P]),
     "sched_precomp": ("rodc_sched_precomp", [_P] * 5 + [_I] * 12 + [_P]),
     "rowbound": ("rodc_rowbound", [_P] * 5 + [_I] * 12 + [_P]),

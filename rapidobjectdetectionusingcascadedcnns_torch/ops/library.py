@@ -41,7 +41,7 @@ def _(planes, sy, sx):
     return windows_cuda.crop_and_resize_cuda(planes, sy.contiguous(), sx.contiguous())
 
 
-@resample.register_fake
+@resample.register_fake  # any window size: K1 bands what it cannot stage whole
 def _(planes, sy, sx):
     b, c = planes.shape[0], planes.shape[1]
     return planes.new_empty((b, sy.shape[1], sy.shape[2], sx.shape[2], c), dtype=torch.float32)

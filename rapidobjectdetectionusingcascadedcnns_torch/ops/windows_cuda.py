@@ -11,7 +11,10 @@ and column, a vertical pass over neighbouring columns of one plane, a
 horizontal pass into an output tile -- and writes the box's contiguous
 output with one bulk copy, where the TPU kernel had to build dense tap
 matrices for its matmul unit. :func:`launch_geometry` says how many boxes
-a block takes and how much shared memory it needs.
+a block takes and how much shared memory it needs. A window too large to
+stage whole (a 3-channel box above 97 px, e.g. the Inception stage's 299
+px) takes the banded launch: a block per box and band of output rows, the
+same arithmetic per value, stores value by value.
 
 The sampling positions are computed here by the same torch expressions the
 plain version uses (``windows.sample_positions``), so the kernel does only
@@ -38,24 +41,45 @@ LAUNCHES = 0
 # values (12 px: 5 boxes; 24 px: 2; 48 px: 1)
 MIN_BLOCK_VALUES = 2048
 SMEM_LIMIT = 232448  # dynamic shared memory one block may have on Hopper (227 KB)
+SM_SHARED = 233472  # shared memory of one SM (228 KB); each block also reserves 1 KB
+# blocks a banded launch sizes its band for on one SM (see launch_geometry)
+BANDED_BLOCKS_PER_SM = 3
 
 
-def launch_geometry(out_h: int, out_w: int, c: int) -> Tuple[int, int]:
-    """(boxes per block, dynamic shared-memory bytes) of a K1 launch.
+def launch_geometry(out_h: int, out_w: int, c: int) -> Tuple[int, int, int]:
+    """(boxes per block, output rows per block, dynamic shared-memory
+    bytes) of a K1 launch.
 
-    Per box: the f32 output tile (4 bytes a value), the bf16 intermediate
-    of 2 * out_w columns (4 bytes a value), 16 bytes of taps per column and
-    24 per row (taps, the row's box and frame). Raises ``ValueError`` when
-    one box does not fit."""
+    Per box row: the f32 output tile (4 bytes a value) and the bf16
+    intermediate of 2 * out_w columns (4 bytes a value), and 24 bytes (the
+    row's taps, box and frame); per box 16 bytes of taps a column. A box
+    that fits whole goes whole (rows = out_h), a few to a block at small
+    sizes. A larger one is banded: one box a block, the rows cut into bands
+    sized so that BANDED_BLOCKS_PER_SM blocks share an SM (at 299 px with 3
+    channels 10 rows, 76,784 bytes; the most one block could hold is 31
+    rows, which leaves one block of 256 threads an SM, with nothing to run
+    while it waits at its two barriers and on its gathers). Each band
+    recomputes the box's column taps, so narrower bands would cost more
+    than they overlap. Raises ``ValueError`` when not even one output row
+    fits the shared-memory limit."""
     per_box = out_h * out_w * c
-    box_bytes = 8 * per_box + 24 * out_h + 16 * out_w
-    if box_bytes > SMEM_LIMIT:
+    row_bytes = 8 * out_w * c + 24
+    col_bytes = 16 * out_w
+    box_bytes = row_bytes * out_h + col_bytes
+    if box_bytes <= SMEM_LIMIT:
+        per_block = max(1, min(-(-MIN_BLOCK_VALUES // per_box), SMEM_LIMIT // box_bytes))
+        return per_block, out_h, per_block * box_bytes
+    if row_bytes + col_bytes > SMEM_LIMIT:
         raise ValueError(
-            "K1 stages a box through shared memory: {}x{}x{} needs {} bytes, more than "
-            "{}".format(out_h, out_w, c, box_bytes, SMEM_LIMIT)
+            "K1 stages a band of rows through shared memory: one row of {}x{}x{} needs "
+            "{} bytes, more than the {}-byte shared-memory limit".format(
+                out_h, out_w, c, row_bytes + col_bytes, SMEM_LIMIT
+            )
         )
-    per_block = max(1, min(-(-MIN_BLOCK_VALUES // per_box), SMEM_LIMIT // box_bytes))
-    return per_block, per_block * box_bytes
+    band = (SM_SHARED // BANDED_BLOCKS_PER_SM - 1024 - col_bytes) // row_bytes
+    if band < 1:
+        band = (SMEM_LIMIT - col_bytes) // row_bytes
+    return 1, band, band * row_bytes + col_bytes
 
 
 def crop_and_resize_cuda(
@@ -91,7 +115,7 @@ def crop_and_resize_cuda(
     if not 1 <= c <= 4:
         raise ValueError("K1 takes frames of 1 to 4 channels; got {}".format(c))
     n, out_h, out_w = sy.shape[1], sy.shape[2], sx.shape[2]
-    per_block, smem = launch_geometry(out_h, out_w, c)
+    per_block, band, smem = launch_geometry(out_h, out_w, c)
     out = torch.empty((b, n, out_h, out_w, c), dtype=torch.float32, device=planes.device)
     if out.numel() == 0:  # nothing to launch (a frame with no boxes)
         return out
@@ -100,7 +124,7 @@ def crop_and_resize_cuda(
     fn = _build.load("resample").rodc_resample
     err = fn(
         planes.data_ptr(), sy.data_ptr(), sx.data_ptr(), out.data_ptr(),
-        b, n, c, h, w, out_h, out_w, per_block, smem,
+        b, n, c, h, w, out_h, out_w, per_block, band, smem,
         torch.cuda.current_stream(planes.device).cuda_stream,
     )
     if err != 0:

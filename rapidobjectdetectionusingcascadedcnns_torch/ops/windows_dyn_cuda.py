@@ -59,7 +59,7 @@ def launch_geometry(out_h: int, out_w: int, c: int) -> Tuple[int, int]:
     if smem(1) > SMEM_LIMIT:
         raise ValueError(
             "K4 stages a slot through shared memory: {}x{}x{} needs {} bytes, more than "
-            "{}".format(out_h, out_w, c, smem(1), SMEM_LIMIT)
+            "the {}-byte shared-memory limit".format(out_h, out_w, c, smem(1), SMEM_LIMIT)
         )
     per_block = max(1, -(-MIN_BLOCK_VALUES // per_slot))
     while smem(per_block) > SMEM_LIMIT:

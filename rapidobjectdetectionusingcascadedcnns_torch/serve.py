@@ -53,7 +53,7 @@ from torch.export.passes import move_to_device_pass
 
 from . import config as cf
 from .models import cascade as casc
-from .models import cnn
+from .models import cnn, inception
 from .models.cascade import CascadeModel, DetectionResult
 from .ops import library  # noqa: F401 (registers the kernels' operators before loading)
 from .ops import nms as nms_ops
@@ -164,21 +164,35 @@ class ServingBundle:
     programs: List[torch.export.ExportedProgram]
 
 
+def trunk_kinds(stage_params: Sequence[cnn.Params]) -> List[Optional[str]]:
+    """Per stage: None for a custom stage, else its trunk's kind
+    (``"compact"`` or ``"v3"``, ``inception.trunk_kind``)."""
+    return [inception.trunk_kind(p["backbone"]) if "backbone" in p else None
+            for p in stage_params]
+
+
 def flatten_params(stage_params: Sequence[cnn.Params]) -> List[torch.Tensor]:
     """Stage parameter dictionaries -> one flat list (per stage: each conv
-    layer's W and b, then fc1's, then fc2's)."""
-    flat = []
-    for p in stage_params:
-        for layer in p["conv"]:
-            flat += [layer["W"], layer["b"]]
-        flat += [p["fc1"]["W"], p["fc1"]["b"], p["fc2"]["W"], p["fc2"]["b"]]
-    return flat
+    layer's W and b, then fc1's, then fc2's; for an Inception stage the
+    trunk's leaves in ``inception.flat_keys`` order, then fc2's)."""
+    return [t for p in stage_params for t in cnn.param_leaves(p)]
 
 
-def unflatten_params(flat: Sequence[torch.Tensor], stage_configs) -> Tuple[cnn.Params, ...]:
-    """The inverse of :func:`flatten_params`."""
+def unflatten_params(
+    flat: Sequence[torch.Tensor], stage_configs, trunks: Optional[Sequence] = None
+) -> Tuple[cnn.Params, ...]:
+    """The inverse of :func:`flatten_params`; ``trunks``: the stages'
+    :func:`trunk_kinds` (needed where a stage is an Inception one)."""
     out, k = [], 0
-    for c in stage_configs:
+    for i, c in enumerate(stage_configs):
+        if c.backbone == "inception":
+            n = len(inception.flat_keys(trunks[i]))
+            out.append({
+                "backbone": inception.backbone_from_leaves(list(flat[k : k + n]), trunks[i]),
+                "fc2": {"W": flat[k + n], "b": flat[k + n + 1]},
+            })
+            k += n + 2
+            continue
         n_conv = len(c.conv_filter_sizes)
         conv = [{"W": flat[k + 2 * i], "b": flat[k + 2 * i + 1]} for i in range(n_conv)]
         k += 2 * n_conv
@@ -226,7 +240,8 @@ class _CascadeProgram(torch.nn.Module):
                 for k, (sh, sw) in enumerate(self.level_sizes)
             ]
         out = casc.cascade_core(
-            images, self.coords_norm, self.boxes_float, unflatten_params(flat, configs), stats,
+            images, self.coords_norm, self.boxes_float,
+            unflatten_params(flat, configs, kn["trunks"]), stats,
             kn["plan"], configs, self.capacities, kn["confidence_mode"], kn["thresholds"],
             kn["high_precision"], kn["chunk"], kn["compaction"], indices,
             kn["extraction_mode"], kn["resample_impl"], kn["nms_mn"], kn["nms_eps"],
@@ -330,6 +345,7 @@ def export_detector(
     knobs = {
         "plan": plan,
         "stage_configs": tuple(model.stage_configs),
+        "trunks": tuple(trunk_kinds(model.stage_params)),
         "confidence_mode": str(cf.get("final_confidence_calculation")),
         "thresholds": tuple(casc.resolve_thresholds(n_stages)),
         "high_precision": high_precision,
@@ -407,6 +423,7 @@ def export_detector(
         "max_batch": max_batch,
         "yuv": yuv,
         "n_stages": n_stages,
+        "trunks": list(knobs["trunks"]),  # per stage: None (custom) or the Inception trunk
         "size0": size0,
         "min_window_length": mwl,
         "window_scale_factor": wsf,

@@ -18,9 +18,9 @@ Re-design of ``TrainCascadeApp`` (app/train_cascade_app.py:41-440):
 
 Every stage trains on the CUDA card unless given ``device="cpu"``; the
 result is the port's ``CascadeModel``, which detects through
-``CascadeDetector``. Meshes (ROADMAP Queue A item 6), the appended
-Inception stage and per-stage trunk widths of Inception cascades (item 7)
-are not ported and raise.
+``CascadeDetector``. With ``append_inception`` a 299 px Inception stage
+follows the custom ones (config.py:279-287, train_cascade_app.py:203-228).
+Meshes (ROADMAP Queue A item 6) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -114,8 +114,13 @@ class SyntheticProvider:
 
     def dataset(self, img_size: int) -> Dataset:
         if img_size not in self._images:
-            raise ValueError(
-                "no {} px corpus; the provider renders {}".format(img_size, sorted(self._images))
+            # render on demand (the 299 px Inception stage) from the highest
+            # resolution there is, the sample order kept
+            from ..data.image_io import resize_rgb
+
+            base = self._images[max(self._images)]
+            self._images[img_size] = np.stack(
+                [resize_rgb(img, img_size, img_size) for img in base]
             )
         images = self._images[img_size]
         pp = Preprocessor(images, standardization=cf.get("standardization"))
@@ -172,7 +177,7 @@ class CascadeTrainer:
 
     def __init__(self, provider: DatasetProvider, seed: Optional[int] = None, mesh=None,
                  device=None):
-        refuse_unported(mesh, bool(cf.get("append_inception")))
+        refuse_unported(mesh)
         self.device = resolve_device(device)
         self.provider = provider
         self.seed = cf.get("seed") if seed is None else seed
@@ -180,6 +185,13 @@ class CascadeTrainer:
         self.sizes = cnn.stage_input_sizes(
             self.n_nets, cf.get("img_width"), cf.get("cascade_increasing_input_dimensions")
         )
+        # the optional Inception stage at 299 px after the custom nets
+        self.append_inception = bool(cf.get("append_inception"))
+        if self.append_inception:
+            from ..models import inception
+
+            self.n_nets += 1
+            self.sizes.append(inception.MODEL_INPUT_WIDTH)
         self.stage_trainers: List[SingleNetTrainer] = []
         self.combined_results: Dict[str, Dict[str, float]] = {}
         # per stage but the last: the sample weights after its re-weighting
@@ -305,12 +317,14 @@ class CascadeTrainer:
             ds = self._load_stage_dataset(stage, prev_ds)
             bneck_in = None if stage == 0 or not cf.get("reuse_bottlenecks") else bottleneck_in_size
 
+            use_inception = self.append_inception and stage == self.n_nets - 1
+            n_custom = self.n_nets - int(self.append_inception)
             per_stage = cf.get("conv_filter_sizes_per_stage")
-            if per_stage is not None:
-                if len(per_stage) < self.n_nets:
+            if per_stage is not None and not use_inception:
+                if len(per_stage) < n_custom:
                     raise ValueError(
-                        "conv_filter_sizes_per_stage needs one entry per cascade stage "
-                        "({} given, {} needed)".format(len(per_stage), self.n_nets)
+                        "conv_filter_sizes_per_stage needs one entry per custom cascade "
+                        "stage ({} given, {} needed)".format(len(per_stage), n_custom)
                     )
                 stage_overlay = {"conv_filter_sizes": list(per_stage[stage])}
             else:
@@ -326,6 +340,7 @@ class CascadeTrainer:
                         nr=stage + 1,
                         nr_max=self.n_nets,
                         seed=self.seed + stage + 1000 * trial,
+                        use_inception=use_inception,
                         device=self.device,
                     )
                     try:

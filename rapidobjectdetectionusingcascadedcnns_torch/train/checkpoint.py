@@ -2,7 +2,8 @@
 train/checkpoint.py of the JAX package).
 
 One ``.npz`` per stage with path-flattened leaf names (``conv/0/W``,
-``conv/0/b``, ..., ``fc1/W``, ``fc2/b``) plus ``__mean__``/``__std__``, and
+``conv/0/b``, ..., ``fc1/W``, ``fc2/b``; an Inception stage's trunk under
+``backbone/``, conv weights in HWIO) plus ``__mean__``/``__std__``, and
 a ``.json`` sidecar holding the architecture (``stage_config``) and any
 extra metadata. The files are the JAX package's own, so checkpoints
 interchange: a stage saved here loads with the JAX package's
@@ -23,6 +24,13 @@ from ..models import cnn
 
 
 def _flatten(params: cnn.Params) -> Dict[str, np.ndarray]:
+    if "backbone" in params:
+        from ..models import inception
+
+        flat = {"backbone/" + k: v for k, v in inception.backbone_to_flat(params["backbone"]).items()}
+        for k in ("W", "b"):
+            flat["fc2/" + k] = params["fc2"][k].detach().float().cpu().numpy()
+        return flat
     flat = {}
     for i, layer in enumerate(params["conv"]):
         for k in ("W", "b"):
@@ -47,7 +55,7 @@ def stage_config_to_json(cfg: cnn.StageConfig) -> dict:
         "n_classes": cfg.n_classes,
         "bottleneck_in_size": cfg.bottleneck_in_size,
         "compute_dtype": "bfloat16" if cfg.compute_dtype == torch.bfloat16 else "float32",
-        "backbone": "custom",
+        "backbone": cfg.backbone,
     }
 
 

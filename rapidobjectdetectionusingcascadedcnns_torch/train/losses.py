@@ -98,8 +98,11 @@ def soft_fbeta_loss(
 def fc_regularization(
     params: Dict[str, object], l2_strength: float = 0.0, l1_strength: float = 0.0
 ) -> Tensor:
-    """L2/L1 penalties on fc1/fc2 weights and biases (net_trainable.py:109-124)."""
-    leaves = [params["fc2"]["W"], params["fc2"]["b"], params["fc1"]["W"], params["fc1"]["b"]]
+    """L2/L1 penalties on fc1/fc2 weights and biases (net_trainable.py:109-124);
+    an Inception stage has no fc1, so fc2 alone."""
+    leaves = [params["fc2"]["W"], params["fc2"]["b"]]
+    if "fc1" in params:
+        leaves += [params["fc1"]["W"], params["fc1"]["b"]]
     reg = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     if l2_strength > 0:
         reg = reg + l2_strength * sum(0.5 * (w * w).sum() for w in leaves)

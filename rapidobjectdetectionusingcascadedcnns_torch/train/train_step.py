@@ -13,6 +13,9 @@ metrics, as in the JAX package.
 
 Unlike the JAX steps, :func:`train_step` updates its state in place: the
 optimizer steps the parameter tensors, and ``state.step`` counts updates.
+A frozen Inception trunk (``trainable(..., frozen_trunk=True)``) takes no
+gradient and is not given to the optimizer, the counterpart of the JAX
+trainer's ``optax.masked`` head-only update.
 """
 
 from __future__ import annotations
@@ -50,25 +53,27 @@ class LossSettings:
     dropout_keep: float
 
 
-def param_leaves(params: cnn.Params) -> List[Tensor]:
-    """The parameter tensors in a fixed order: conv layers, fc1, fc2."""
-    leaves = []
-    for layer in params["conv"]:
-        leaves += [layer["W"], layer["b"]]
-    return leaves + [params["fc1"]["W"], params["fc1"]["b"], params["fc2"]["W"], params["fc2"]["b"]]
+param_leaves = cnn.param_leaves
 
 
-def trainable(params: cnn.Params, device: torch.device) -> cnn.Params:
-    """A copy of ``params`` on ``device`` as f32 leaves that require grad."""
+def optimized_leaves(params: cnn.Params) -> List[Tensor]:
+    """The leaves the optimizer steps: those that take a gradient."""
+    return [t for t in param_leaves(params) if t.requires_grad]
 
-    def leaf(t):
-        return t.detach().to(device=device, dtype=torch.float32).clone().requires_grad_(True)
 
-    return {
-        "conv": [{k: leaf(v) for k, v in layer.items()} for layer in params["conv"]],
-        "fc1": {k: leaf(v) for k, v in params["fc1"].items()},
-        "fc2": {k: leaf(v) for k, v in params["fc2"].items()},
-    }
+def trainable(params: cnn.Params, device: torch.device, frozen_trunk: bool = False) -> cnn.Params:
+    """A copy of ``params`` on ``device`` as f32 leaves that require grad;
+    with ``frozen_trunk`` an Inception stage's trunk is copied without."""
+
+    def leaf(t, grad=True):
+        return t.detach().to(device=device, dtype=torch.float32).clone().requires_grad_(grad)
+
+    if "backbone" in params:
+        return {
+            "backbone": cnn.tree_map(lambda t: leaf(t, not frozen_trunk), params["backbone"]),
+            "fc2": {k: leaf(v) for k, v in params["fc2"].items()},
+        }
+    return cnn.tree_map(leaf, params)
 
 
 def init_train_state(
@@ -76,12 +81,13 @@ def init_train_state(
     seed: int,
     make_optimizer: Callable[[List[Tensor]], ScheduledOptimizer],
     device: torch.device,
+    frozen_trunk: bool = False,
 ) -> TrainState:
     """Glorot-initialized master weights drawn on the host from ``seed``
     (the same values on every device), moved to ``device``."""
     generator = torch.Generator().manual_seed(seed)
-    params = trainable(cnn.init_stage(cfg, generator), device)
-    return TrainState(params, make_optimizer(param_leaves(params)))
+    params = trainable(cnn.init_stage(cfg, generator), device, frozen_trunk)
+    return TrainState(params, make_optimizer(optimized_leaves(params)))
 
 
 def standardize(images_u8: Tensor, mean: Tensor, std: Tensor) -> Tensor:

@@ -22,8 +22,13 @@ orchestration, with the batch stream of the JAX package's seeded iterators
 (the same seeds give the same batches in both packages), assembled ahead of
 the card by a prefetch thread (``data/prefetch.PrefetchIterator``, depth 2). It runs on the
 CUDA card unless given ``device="cpu"``. Data-parallel meshes (ROADMAP
-Queue A item 6) and the Inception backbone (item 7) are not ported and
-raise.
+Queue A item 6) are not ported and raise.
+
+An Inception stage (``use_inception``) trains its compact trunk end to end,
+or, with ``inception_weights_path`` set, keeps the loaded trunk frozen:
+every split is embedded through it once, the head trains on the 2048-wide
+rows, and online augmentation is off for the stage (JAX
+``trainer.py:189-256``).
 """
 
 from __future__ import annotations
@@ -53,15 +58,10 @@ class ConstantPredictionException(Exception):
     (net_trainable.py:438-441)."""
 
 
-def refuse_unported(mesh, use_inception: bool) -> None:
+def refuse_unported(mesh) -> None:
     if mesh is not None or cf.get("train_mesh_devices") not in (None, 0, 1, False):
         raise NotImplementedError(
             "data-parallel training meshes are not ported yet (ROADMAP Queue A item 6)"
-        )
-    if use_inception:
-        raise NotImplementedError(
-            "the Inception backbone and its frozen-trunk training are not ported yet "
-            "(ROADMAP Queue A item 7)"
         )
 
 
@@ -81,7 +81,7 @@ class SingleNetTrainer:
         mesh=None,
         device=None,
     ):
-        refuse_unported(mesh, use_inception)
+        refuse_unported(mesh)
         self.device = resolve_device(device)
         self.ds = dataset
         self.nr = nr
@@ -106,8 +106,14 @@ class SingleNetTrainer:
         )
 
         self.stage_config = cnn.StageConfig.from_config(
-            dataset.image_shape[0], bottleneck_in_size=bottleneck_in_size
+            dataset.image_shape[0],
+            bottleneck_in_size=bottleneck_in_size,
+            backbone="inception" if use_inception else "custom",
         )
+        # the pretrained-trunk workflow: a loaded trunk stays frozen and only
+        # the head trains, as the reference trains the layers on top of the
+        # imported Inception graph (network/inception_builder.py:68-96)
+        self._frozen_trunk = bool(use_inception and cf.get("inception_weights_path"))
         set_numerics(self.stage_config.compute_dtype)
         self.iterations_per_epoch = math.ceil(dataset.train.n_samples / cf.get("batch_size"))
         self.iterations_total = int(cf.get("epochs_total") * self.iterations_per_epoch)
@@ -125,13 +131,13 @@ class SingleNetTrainer:
 
         if snapshot_full_path:
             params, _, _, _, _ = bridge.load_stage(snapshot_full_path, self.device)
-            params = train_step.trainable(params, self.device)
+            params = train_step.trainable(params, self.device, self._frozen_trunk)
             self.state = train_step.TrainState(
-                params, make_optimizer(train_step.param_leaves(params))
+                params, make_optimizer(train_step.optimized_leaves(params))
             )
         else:
             self.state = train_step.init_train_state(
-                self.stage_config, self._seed, make_optimizer, self.device
+                self.stage_config, self._seed, make_optimizer, self.device, self._frozen_trunk
             )
 
         self._loss_settings = train_step.LossSettings(
@@ -145,9 +151,15 @@ class SingleNetTrainer:
         )
         self._augment = (
             augment_ops.AugmentConfig.from_config()
-            if cf.get("data_augmentation_online")
+            if cf.get("data_augmentation_online") and not self._frozen_trunk
             else None
         )
+        if self._frozen_trunk and cf.get("data_augmentation_online"):
+            log.log(
+                "frozen pretrained trunk: disabling online augmentation for "
+                "this stage (images are embedded once through the trunk; the "
+                "head trains on cached 2048-d bottlenecks)"
+            )
 
         pp = dataset.preprocessor
         size = self.stage_config.input_size
@@ -155,6 +167,14 @@ class SingleNetTrainer:
         std = np.broadcast_to(np.asarray(pp.std, np.float32), (size, size, 3)).copy()
         self._mean = torch.as_tensor(mean, device=self.device)
         self._std = torch.as_tensor(std, device=self.device)
+        # what the stage standardizes its windows with in a detector
+        self._window_mean, self._window_std = self._mean, self._std
+        if self._frozen_trunk:
+            # embed-once: the splits go through the frozen trunk once, and the
+            # steps standardize the embedded rows with the identity
+            self._embed_splits_through_trunk()
+            self._mean = torch.zeros((), device=self.device)
+            self._std = torch.ones((), device=self.device)
 
         # best-snapshot tracking
         self.best_val_results: Optional[Dict[str, float]] = None
@@ -171,6 +191,38 @@ class SingleNetTrainer:
         if not self.loss_history:
             return np.zeros((0,), np.float32)
         return torch.stack(self.loss_history).float().cpu().numpy()
+
+    @torch.no_grad()
+    def _embed_splits_through_trunk(self) -> None:
+        """Replace every split's images with their frozen-trunk embeddings,
+        (N, 2048) float32, in place, so predict, evaluation and the
+        cascade's combined evaluation read the same rows through
+        ``apply_stage``'s 2-D path. The trunk runs in bf16, as the JAX
+        package's embed program (JAX ``trainer.py:218-256``) does whatever
+        the compute dtype, over chunks of ``inception.rows_per_chunk`` rows
+        (rows are independent)."""
+        from ..models import inception
+
+        backbone = inception.cast_backbone(self.state.params["backbone"], torch.bfloat16)
+        chunk = inception.rows_per_chunk(self.stage_config.input_size)
+        for split in (self.ds.train, self.ds.valid, self.ds.test):
+            imgs = split.images
+            if imgs.ndim != 4 or len(imgs) == 0:
+                continue  # already embedded (a shared split) or empty
+            out = np.empty((len(imgs), inception.BOTTLENECK_TENSOR_SIZE), np.float32)
+            for s in range(0, len(imgs), chunk):
+                block = torch.as_tensor(imgs[s : s + chunk], device=self.device)
+                x = train_step.standardize(block, self._mean, self._std)
+                out[s : s + chunk] = inception.apply_backbone(
+                    backbone, x, dtype=torch.bfloat16
+                ).cpu().numpy()
+            split.images = out
+        log.log(
+            "embedded {} train / {} valid / {} test samples through the "
+            "frozen trunk".format(
+                self.ds.train.n_samples, self.ds.valid.n_samples, self.ds.test.n_samples
+            )
+        )
 
     def _batch_bottlenecks(self, batch) -> Optional[np.ndarray]:
         if self.stage_config.bottleneck_in_size is None:
@@ -443,17 +495,20 @@ class SingleNetTrainer:
     # -------- deployment artifacts --------
 
     def mean_std(self):
-        return self._mean.cpu().numpy(), self._std.cpu().numpy()
+        """The stage's standardization of its input windows. For a frozen
+        trunk these are the statistics the embed pass used, not the
+        identity the steps use afterwards: the JAX trainer exports the
+        identity there, so its detector feeds that trunk unstandardized
+        windows (ROADMAP Queue C)."""
+        return self._window_mean.cpu().numpy(), self._window_std.cpu().numpy()
 
     def inference_params(self) -> cnn.Params:
         """A detached copy of the current weights (what a ``CascadeModel``
-        holds, and the best snapshot)."""
-        p = self.state.params
-        return {
-            "conv": [{k: v.detach().clone() for k, v in layer.items()} for layer in p["conv"]],
-            "fc1": {k: v.detach().clone() for k, v in p["fc1"].items()},
-            "fc2": {k: v.detach().clone() for k, v in p["fc2"].items()},
-        }
+        holds, and the best snapshot); a frozen trunk, which never changes,
+        is shared rather than copied."""
+        return cnn.tree_map(
+            lambda t: t.detach().clone() if t.requires_grad else t, self.state.params
+        )
 
     def export(self, model_dir: str, session_key: str, stage: Optional[int] = None):
         """Persist the trained stage as a deployment artifact (the analog of

@@ -63,9 +63,11 @@ def _boxes(rng, b, n, h, w):
     return torch.from_numpy(boxes.astype(np.float32))
 
 
-@pytest.mark.parametrize("out", [12, 24, 48])
+@pytest.mark.parametrize("out", [12, 24, 48, 97, 98, 299])
 def test_kernel_matches_plain(card, out):
-    """K1 against its plain version on the card."""
+    """K1 against its plain version on the card: whole boxes up to 97 px,
+    the banded launch above (98 px: one band of 31 rows short; 299 px:
+    the Inception stage, 10 rows a block)."""
     rng = np.random.RandomState(out)
     images = torch.from_numpy((rng.rand(3, 120, 160, 3) * 255).astype(np.float32)).to(card)
     boxes = _boxes(rng, 3, 50, 120, 160).to(card)

@@ -234,16 +234,17 @@ def _tiny_model():
         (lambda m: tserve.export_window_sharded(m, 40, 48, object()), "item 6"),
         (lambda m: tct.CascadeTrainer(None, mesh=object(), device="cpu"), "item 6"),
         (lambda m: ttrainer.SingleNetTrainer(None, mesh=object(), device="cpu"), "item 6"),
-        (lambda m: ttrainer.SingleNetTrainer(None, use_inception=True, device="cpu"),
-         "item 7"),
+        (lambda m: ttrainer.SingleNetTrainer(None, use_inception=True, mesh=object(),
+                                             device="cpu"),
+         "item 6"),
     ],
     ids=["detector mesh", "bundle mesh", "window-sharded bundle", "cascade trainer mesh",
          "trainer mesh", "trainer inception"],
 )
 def test_unported_paths_raise(entry, what):
-    """Meshes (ROADMAP Queue A item 6) and the Inception backbone (item 7)
-    are not ported: the entry points that take one raise, naming the item,
-    rather than running without it."""
+    """Meshes (ROADMAP Queue A item 6) are not ported: the entry points
+    that take one raise, naming the item, rather than running without it;
+    an Inception stage's trainer (item 7, ported) too."""
     with pytest.raises(NotImplementedError, match=what):
         entry(_tiny_model())
 

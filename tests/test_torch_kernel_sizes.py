@@ -33,17 +33,27 @@ def test_k3_workspace_is_linear_in_rows():
 
 def test_k1_launch_geometry_fits_shared_memory():
     """Boxes per block and the shared memory they take (output tile,
-    bf16 intermediate, taps) at 12, 24 and 48 px with 3 channels: within
-    the 227 KB a block may have, and each box's output a multiple of 16
-    bytes (the bulk store's unit). A window too large to stage raises."""
+    bf16 intermediate, taps) at 12, 24 and 48 px with 3 channels: whole
+    boxes, within the 227 KB a block may have, and each box's output a
+    multiple of 16 bytes (the bulk store's unit). Above 97 px a box is
+    banded: one box a block, a band of rows sized for 3 blocks an SM (299
+    px: 10 rows, 76,784 B). A window whose single row does not fit
+    raises."""
     for size, per_block in ((12, 5), (24, 2), (48, 1)):
-        got_per_block, smem = windows_cuda.launch_geometry(size, size, 3)
-        assert got_per_block == per_block
+        got_per_block, band, smem = windows_cuda.launch_geometry(size, size, 3)
+        assert (got_per_block, band) == (per_block, size)
         assert smem == per_block * (8 * size * size * 3 + 40 * size)
         assert smem <= 227 * 1024
         assert (size * size * 3 * 4) % 16 == 0
-    with pytest.raises(ValueError):
-        windows_cuda.launch_geometry(128, 128, 3)
+    assert windows_cuda.launch_geometry(97, 97, 3)[:2] == (1, 97)
+    for size in range(98, 300):
+        per_block, band, smem = windows_cuda.launch_geometry(size, size, 3)
+        assert per_block == 1 and 1 <= band < size
+        assert smem == band * (8 * size * 3 + 24) + 16 * size
+        assert 3 * (smem + 1024) <= SM_LIMIT
+    assert windows_cuda.launch_geometry(299, 299, 3) == (1, 10, 76784)
+    with pytest.raises(ValueError, match="shared-memory limit"):
+        windows_cuda.launch_geometry(8, 8000, 4)
 
 
 @pytest.mark.parametrize("c", [1, 3])

@@ -8,16 +8,21 @@ The stage CNNs run in chunks of ``inference_chunk_size`` rows; it is cut
 to 4,000 here so that chunks straddle frames (3,344 windows a frame), as
 the VGA path's 16,384-row chunks straddle its 5,061-window frames."""
 
+import json
+import os
+import pickle
+import subprocess
+import sys
+import time
+import types
+
 import numpy as np
 import pytest
 import torch
 
-from rapidobjectdetectionusingcascadedcnns_tpu import config as jcf
-from rapidobjectdetectionusingcascadedcnns_tpu import serve as jserve
 from rapidobjectdetectionusingcascadedcnns_torch import config as tcf
 from rapidobjectdetectionusingcascadedcnns_torch import serve as tserve
 from rapidobjectdetectionusingcascadedcnns_torch.data import synthetic
-from rapidobjectdetectionusingcascadedcnns_torch.models import cascade as tcascade
 
 import torch_parity as tp
 from torch_parity import reset_port_config  # noqa: F401 (autouse fixture)
@@ -26,11 +31,47 @@ torch.set_num_threads(2)
 
 CAPS = [8, 8]  # tests/test_serve.py::test_bundle_dynamic_batch's ladder
 N_RUNGS = 4  # enough for these frames: at most 499 and 330 survivors
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SERVE_CFG = dict(nms_opencv_min_neighbors=1, nms_on_device=True, inference_batch_frames=2,
+                 inference_chunk_size=4000)
+
+# A fresh process computes the references while this file's port export
+# runs: the port's live detector on the 5 frames (its re-dispatches
+# counted), then the JAX package's dynamic bundle of the same weights and
+# knobs, exported, saved, loaded and served on the first 4 frames. Each
+# result is pickled as soon as it is ready.
+CHILD = r"""
+import json, os, pickle, sys
+import numpy as np
+import torch
+settings, frames_path, work, tests_dir, caps = sys.argv[1:6]
+sys.path.insert(0, tests_dir)
+import torch_parity as tp
+from rapidobjectdetectionusingcascadedcnns_tpu import serve as jserve
+from rapidobjectdetectionusingcascadedcnns_torch.models import cascade as tcascade
+torch.set_num_threads(2)
+tp.configure(**json.loads(settings))
+with np.load(frames_path) as z:
+    frames = list(z["frames"])
+jmodel, tmodel = tp.jax_and_port_models(seed=0)
+det = tcascade.CascadeDetector(tmodel, capacity_schedule=json.loads(caps))
+live = det.detect_batch(frames)
+with open(work + "/live.part", "wb") as f:
+    pickle.dump({"redispatches": det.redispatches, "results": live}, f)
+os.replace(work + "/live.part", work + "/live.pkl")
+bundle = jserve.export_detector(jmodel, 100, 120, batch="dynamic", capacities=[1024, 512],
+                                n_rungs=1)
+jserve.save_bundle(bundle, work)
+served = jserve.load_bundle(work).detect_batch(frames[:4])
+with open(work + "/served.pkl", "wb") as f:
+    pickle.dump({"batch": bundle.meta["batch"], "results": [
+        {k: getattr(r, k) for k in ("n_windows", "raw_window_ids", "raw_confidences", "boxes")}
+        for r in served]}, f)
+"""
 
 
 def _cfg():
-    tp.configure(nms_opencv_min_neighbors=1, nms_on_device=True, inference_batch_frames=2,
-                 inference_chunk_size=4000)
+    tp.configure(**SERVE_CFG)
 
 
 def _frames(n=5):
@@ -55,16 +96,53 @@ def models():
     return tp.jax_and_port_models(seed=0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def references(tmp_path_factory):
+    """The reference process, started with the module's first test.
+    Yields functions that wait for its results: ``live()`` (the live
+    detector's results on the 5 frames and its re-dispatches) and ``jax()``
+    (the JAX bundle's batch mode and its results on the first 4 frames)."""
+    work = tmp_path_factory.mktemp("references")
+    np.savez(str(work / "frames.npz"), frames=np.stack(_frames()))
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CHILD, json.dumps(SERVE_CFG), str(work / "frames.npz"),
+         str(work), os.path.join(REPO, "tests"), json.dumps(CAPS)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def read(name):
+        deadline = time.time() + 600
+        while not (work / name).exists():
+            if proc.poll() is not None and not (work / name).exists():
+                raise AssertionError(proc.communicate()[1][-3000:])
+            assert time.time() < deadline, "the reference process took over 600 s"
+            time.sleep(0.2)
+        with open(str(work / name), "rb") as f:
+            return pickle.load(f)
+
+    def live():
+        out = read("live.pkl")
+        return out["results"], out["redispatches"]
+
+    def jax():
+        _, stderr = proc.communicate(timeout=600)
+        assert proc.returncode == 0, stderr[-3000:]
+        out = read("served.pkl")
+        return out["batch"], [types.SimpleNamespace(**r) for r in out["results"]]
+
+    yield types.SimpleNamespace(live=live, jax=jax)
+    if proc.poll() is None:
+        proc.kill()
+    proc.communicate()
+
+
 @pytest.fixture(scope="module")
-def served(models, tmp_path_factory):
-    """The live detector's results on 5 frames (with its re-dispatches),
-    the dynamic bundle exported, saved and loaded, and its results on the
-    same frames with every program call recorded."""
+def served(models, references, tmp_path_factory):
+    """The live detector's results on 5 frames and its re-dispatches (from
+    the reference process), the dynamic bundle exported, saved and loaded,
+    and its results on the same frames with every program call recorded."""
     _cfg()
-    model = models[1]
-    det = tcascade.CascadeDetector(model, capacity_schedule=CAPS)
-    live = det.detect_batch(_frames())
-    bundle = tserve.export_detector(model, 100, 120, batch="dynamic", capacities=CAPS,
+    bundle = tserve.export_detector(models[1], 100, 120, batch="dynamic", capacities=CAPS,
                                     n_rungs=N_RUNGS)
     path = str(tmp_path_factory.mktemp("dynamic_bundle"))
     tserve.save_bundle(bundle, path)
@@ -80,8 +158,9 @@ def served(models, tmp_path_factory):
     loaded._dispatch_rung = spy
     results = loaded.detect_batch(_frames())
     loaded._dispatch_rung = dispatch
+    live, redispatches = references.live()
     return {"bundle": bundle, "loaded": loaded, "live": live, "served": results,
-            "calls": calls, "redispatches": det.redispatches}
+            "calls": calls, "redispatches": redispatches}
 
 
 def test_dynamic_bundle_equals_live_detector(served):
@@ -94,19 +173,15 @@ def test_dynamic_bundle_equals_live_detector(served):
     assert all(len(r.boxes) for r in served["served"])
 
 
-def test_dynamic_bundle_matches_jax_dynamic_bundle(models, served, tmp_path):
-    """The JAX package's dynamic bundle of the same weights, at capacities
-    no frame saturates (its ladder would compile a program per rung and
-    frame count), against the port's ladder walk: both are the unbounded
-    survivor sets, within the port-vs-JAX tolerances."""
-    _cfg()
-    bundle = jserve.export_detector(models[0], 100, 120, batch="dynamic",
-                                    capacities=[1024, 512], n_rungs=1)
-    assert bundle.meta["batch"] == "dynamic"
-    jserve.save_bundle(bundle, str(tmp_path))
-    jax_served = jserve.load_bundle(str(tmp_path)).detect_batch(_frames(4))
-    jcf.reset()
-    for a, b in zip(served["served"], jax_served):
+def test_dynamic_bundle_matches_jax_dynamic_bundle(served, references):
+    """The JAX package's dynamic bundle of the same weights (its
+    ``build_cascade_model(seed=0)``), at capacities no frame saturates (its
+    ladder would compile a program per rung and frame count), against the
+    port's ladder walk: both are the unbounded survivor sets, within the
+    port-vs-JAX tolerances."""
+    batch, jax_results = references.jax()
+    assert batch == "dynamic" and len(jax_results) == 4
+    for a, b in zip(served["served"], jax_results):
         tp.assert_results_close(a, b)
 
 

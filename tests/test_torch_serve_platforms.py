@@ -13,10 +13,11 @@ scalars, which must stay behind, would raise). Weights come from the JAX
 refusals that stay (meshes, K4, ``platforms`` without the export device or
 with a type the port lacks) are held in ``tests/test_torch_serve.py``."""
 
-import json
+import copy
 import os
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -60,27 +61,78 @@ def _assert_same(live, served):
         assert a.n_survivors_per_stage == b.n_survivors_per_stage
 
 
+CLI_ARGS = ["--height", "64", "--width", "80", "--batch", "dynamic", "--rungs", "1",
+            "--platform", "cpu,cuda"]
+
+
 @pytest.fixture(scope="module")
 def model():
     _cfg()
     return tp.jax_and_port_models(seed=0)[1]
 
 
-def _on_meta(path, rung=0):
-    """Program ``rung`` of the saved bundle at ``path`` moved from the CPU
-    to the meta device as ``load_bundle`` moves it to a card, and run there
-    on meta frames: the packed rows' shape. A dynamic program's host
-    scalars stay on the CPU (``item`` of a meta tensor would raise)."""
-    program = tserve._to_device(
-        torch.export.load(os.path.join(path, "program_{}.pt2".format(rung))), "cpu", "meta")
-    with open(os.path.join(path, "meta.json")) as f:
-        meta = json.load(f)
-    weights = tserve.load_bundle(path, device="cpu")._weights
+@pytest.fixture(scope="module", autouse=True)
+def cli_run(model, tmp_path_factory):
+    """``python -m ...run export-serving --device cpu --batch dynamic`` on
+    the model's checkpoint in a fresh process, started with the module's
+    first test so that it runs while the others do: (its directory, its
+    arguments, the process)."""
+    _cfg()
+    work = tmp_path_factory.mktemp("cli_export")
+    checkpoint.save_cascade(str(work / "models"), "cli", model)
+    args = ["export-serving", str(work / "models"), "cli", str(work / "bundle"), *CLI_ARGS]
+    code = (
+        "import sys\n"
+        "from rapidobjectdetectionusingcascadedcnns_torch import config as cf, run\n"
+        "for k, v in {cfg!r}.items():\n"
+        "    cf.set(k, v)\n"
+        "sys.argv = ['run'] + {args!r}\n"
+        "run.main(sys.argv[1:] + ['--device', 'cpu'])\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'rapidobjectdetectionusingcascadedcnns_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    ).format(cfg={k: tcf.get(k) for k in [*tp.GOLDEN_CFG, "nms_on_device",
+                                           "inference_batch_frames"]}, args=args)
+    tcf.reset()
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    yield work, args, proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def _on_meta(loaded, rung=0):
+    """Program ``rung`` of a saved bundle loaded on the CPU (a copy of it,
+    as ``torch.export.load`` read it) moved from the CPU to the meta device
+    as ``load_bundle`` moves it to a card, and run there on meta frames:
+    the packed rows' shape. A dynamic program's host scalars stay on the
+    CPU (``item`` of a meta tensor would raise). Running the copy can fix
+    the frame count of the loaded bundle's own modules, so a test calls
+    this after it has served with ``loaded``."""
+    with warnings.catch_warnings():  # pytree's deprecation notes on deepcopy
+        warnings.simplefilter("ignore", FutureWarning)
+        program = copy.deepcopy(loaded.programs[rung])
+    program = tserve._to_device(program, "cpu", "meta")
+    meta = loaded.meta
     frames = torch.zeros(meta["chunk_hint"], meta["img_h"], meta["img_w"], 3,
                          dtype=torch.uint8, device="meta")
-    out = program.module()(frames, [w.to("meta") for w in weights])
+    out = program.module()(frames, [w.to("meta") for w in loaded._weights])
     assert out.device.type == "meta"
     return tuple(out.shape)
+
+
+@pytest.fixture(scope="module")
+def crop_live(model):
+    """The live crop-mode detector's results on the 128x256 frames, which
+    both crop-mode bundles are held to."""
+    _cfg(window_extraction_mode="crop")
+    frames = _frames(128, 256)
+    live = tcascade.CascadeDetector(model, capacity_schedule=CROP_CAPS).detect_batch(frames)
+    tcf.reset()
+    return frames, live
 
 
 def test_cpu_cuda_bundle_lists_both_and_equals_live(model, tmp_path):
@@ -98,20 +150,19 @@ def test_cpu_cuda_bundle_lists_both_and_equals_live(model, tmp_path):
     loaded = tserve.load_bundle(str(tmp_path), device="cpu")
     assert loaded.meta["platforms"] == ["cpu", "cuda"]
     _assert_same(live, loaded.detect_batch(_frames()))
-    assert _on_meta(str(tmp_path)) == (2, loaded.programs[0].module()(
+    assert _on_meta(loaded) == (2, loaded.programs[0].module()(
         torch.as_tensor(np.stack(_frames())), loaded._weights).shape[1])
 
 
 @pytest.mark.parametrize("batch", [2, "dynamic"])
-def test_crop_mode_bundle_lists_both_and_equals_live(model, tmp_path, batch):
+def test_crop_mode_bundle_lists_both_and_equals_live(model, crop_live, tmp_path, batch):
     """A crop-mode ("cpu", "cuda") bundle of 128x256 frames, with a static
     and with a symbolic frame count: stage 0 runs K2 (``rodc::sched``) over
     the plan's schedule, whose tables enter the program as constants; it
     equals the live detector on the CPU, and the moved program carries the
     tables along."""
     _cfg(window_extraction_mode="crop")
-    frames = _frames(128, 256)
-    live = tcascade.CascadeDetector(model, capacity_schedule=CROP_CAPS).detect_batch(frames)
+    frames, live = crop_live
     bundle = tserve.export_detector(model, 128, 256, batch=batch, capacities=CROP_CAPS,
                                     n_rungs=1, platforms=("cpu", "cuda"))
     assert bundle.meta["extraction_mode"] == "crop" and bundle.meta["resample_impl"] == "pallas2"
@@ -120,8 +171,9 @@ def test_crop_mode_bundle_lists_both_and_equals_live(model, tmp_path, batch):
     assert len(bundle.programs[0].constants) > 0  # K2's schedule tables
     tserve.save_bundle(bundle, str(tmp_path))
     tcf.reset()
-    _assert_same(live, tserve.load_bundle(str(tmp_path), device="cpu").detect_batch(frames))
-    assert _on_meta(str(tmp_path))[0] == 2
+    loaded = tserve.load_bundle(str(tmp_path), device="cpu")
+    _assert_same(live, loaded.detect_batch(frames))
+    assert _on_meta(loaded)[0] == 2
 
 
 def test_a_host_scalar_that_cannot_stay_on_the_cpu_raises():
@@ -147,41 +199,24 @@ def test_load_on_an_unlisted_device_raises(model, tmp_path):
         tserve.load_bundle(str(tmp_path), device="meta")
 
 
-def test_cli_export_serving_dynamic(model, tmp_path):
+def test_cli_export_serving_dynamic(model, cli_run):
     """``python -m ...run export-serving --device cpu --batch dynamic``
     writes a bundle that loads and equals the live detector, in a process
     that never loads jax or the JAX package; without a card the command
     raises unless given the CPU."""
     _cfg()
-    checkpoint.save_cascade(str(tmp_path / "models"), "cli", model)
-    out_dir = str(tmp_path / "bundle")
-    args = ["export-serving", str(tmp_path / "models"), "cli", out_dir, "--height", "64",
-            "--width", "80", "--batch", "dynamic", "--rungs", "1", "--platform", "cpu,cuda"]
-    code = (
-        "import sys\n"
-        "from rapidobjectdetectionusingcascadedcnns_torch import config as cf, run\n"
-        "for k, v in {cfg!r}.items():\n"
-        "    cf.set(k, v)\n"
-        "sys.argv = ['run'] + {args!r}\n"
-        "run.main(sys.argv[1:] + ['--device', 'cpu'])\n"
-        "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'rapidobjectdetectionusingcascadedcnns_tpu'))\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
-    ).format(cfg={k: tcf.get(k) for k in [*tp.GOLDEN_CFG, "nms_on_device",
-                                           "inference_batch_frames"]}, args=args)
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
-                         text=True, timeout=300)
-    assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.strip().endswith("ok") and "exported serving bundle" in out.stdout
+    work, args, proc = cli_run
+    out_dir = str(work / "bundle")
+    stdout, stderr = proc.communicate(timeout=300)
+    assert proc.returncode == 0, stderr[-3000:]
+    assert stdout.strip().endswith("ok") and "exported serving bundle" in stdout
     loaded = tserve.load_bundle(out_dir, device="cpu")
     assert loaded.meta["batch"] == "dynamic" and loaded.meta["platforms"] == ["cpu", "cuda"]
-    assert _on_meta(out_dir)[0] == loaded.meta["chunk_hint"]
     frames = _frames(64, 80, 3)
     tcf.set("inference_batch_frames", loaded.meta["chunk_hint"])
     live = tcascade.CascadeDetector(model, capacity_schedule=loaded.meta["capacity_rungs"][0])
     _assert_same(live.detect_batch(frames), loaded.detect_batch(frames))
+    assert _on_meta(loaded)[0] == loaded.meta["chunk_hint"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             trun.main(args)
