@@ -142,8 +142,9 @@ Phases (each checked; any failure exits non-zero):
      saved, loaded on the card and serving 1, 7, 16 and 23 frames, each
      equal to the live detector (K1 and K3 counted around each call; the
      stage CNNs' 16,384-row chunks straddle frames); then random weights at
-     the default capacities [640, 256] through a 5-rung dynamic bundle
-     that reaches [5061, 4096] over the 16 VGA frames: every
+     capacities [2560, 1024] through a 3-rung dynamic bundle that reaches
+     [5061, 4096] over the 16 VGA frames (5 rungs from [640, 256] until
+     phase 30 came, to keep the script's time): every
      saturated frame re-run alone, as many re-runs as the live detector's
      re-dispatches, results equal; the batch wall against the same programs
      re-running each frame padded to 16 copies (a static bundle's re-runs);
@@ -214,6 +215,25 @@ Phases (each checked; any failure exits non-zero):
      shape, with its launches), at 16 frames x 64 boxes and 1 frame x 256
      boxes (listed with 0 launches), and one launch of 8,192 boxes (over
      2^31 values) at its last boxes.
+  30. meshes on the card: a 2-shard mesh (cuda:0, cuda:0) with phase 18's
+     flagship at its capacities and operating point (host NMS): the 16 VGA
+     YUV frames frame-sharded (8 a shard) against the single-device
+     detector, in gather mode and in crop mode (K2 once a shard a dispatch,
+     over the full plan's schedule), flips counted as phase 18 counts them,
+     the walls, and one chunk's shards against its gather; one dense
+     450x450 frame at scale factor 1.005 window-sharded in crop mode (K1 on
+     each shard's boxes) and in gather mode against ``detect``; a few
+     data-parallel steps of the 24 px stage (f32, TF32 off, augmentation,
+     dropout 0.5) against one device from the same seed; NCCL at world size
+     1 through ``multihost.initialize`` and the rehearsal in the group
+     against the rehearsal alone; a frame-sharded static bundle (16 frames
+     a call, programs of 8) against the live frame-sharded detector; a
+     window-sharded bundle of the dense frame (crop mode, 1 rung) against
+     the live window-sharded detection; K1 and
+     K2 held against their plain versions at the shard-local shapes (one
+     ``kernels`` entry each, with the launches of the counted sharded run).
+     What one card cannot show (NCCL across two cards, two cards' shards
+     overlapping) is printed as unverified.
 
 Phases 19 and 20 run their CPU legs on 1 fold and 2 scenes (2 and 4 until
 phases 26-28 came), to keep the script's time.
@@ -229,7 +249,9 @@ its launches on its path, error, times and bound (K1 once for each path,
 at that path's shapes; K2, K1's re-extraction and K1's stage 0 also for the
 FDDB app; K1 and K3 also for phase 22's dynamic bundle, K2 for its
 crop-mode bundle; K1 for phase 27's visualizer, once for each dispatch
-shape; K1 at 299 px for phase 29, once for each held shape); the line before that is the card's name and power limit. Without
+shape; K1 at 299 px for phase 29, once for each held shape; K1 and K2 at
+phase 30's shard-local shapes); the line before that is the card's name
+and power limit. Without
 CUDA the script prints a message to stderr and exits 2.
 """
 
@@ -1989,7 +2011,11 @@ def phase_cli(torch, model):
 
 
 DYN_FRAME_COUNTS = (1, 7, 16, 23)  # frames served by one loaded dynamic program
-LADDER_RUNGS = 5  # [640, 256] .. [5061, 4096]: the rungs phase 4's frames climb
+# [2560, 1024] .. [5061, 4096]: the last rungs phase 4's frames climb (5 rungs
+# from [640, 256] until phase 30 came: the export took 68-129 s); the live
+# detector's retries stop at the same top rung
+LADDER_BASE = [2560, 1024]
+LADDER_RUNGS = 3
 CROSS_FRAMES = 2  # the cross-device bundle's CPU leg
 SOAK_FRAMES = 128  # a short soak: 8 batches of the 16 VGA frames, each path
 TRAIN_STEPS = 4  # chained updates a stage in phase 25
@@ -2131,7 +2157,7 @@ def _crop_flagship(torch, model, caps, frames, work, kind, card):
 
 
 def _ladder_walk(torch, device, frames, kind, card):
-    """22b. Random weights at the default capacities through a dynamic
+    """22b. Random weights at capacities ``LADDER_BASE`` through a dynamic
     bundle whose ladder reaches the rung phase 4's frames end on: the
     served batch re-runs each saturated frame alone at each rung, as the
     live detector re-dispatches it, with equal results. Then the same
@@ -2142,11 +2168,11 @@ def _ladder_walk(torch, device, frames, kind, card):
 
     same = _load_tool("serve_torch_bundle_check").same_detections
     model = cascade.build_cascade_model(seed=0, device=device)
-    live_det = cascade.CascadeDetector(model)
+    live_det = cascade.CascadeDetector(model, capacity_schedule=LADDER_BASE)
     live = _quietly(live_det.detect_batch_yuv420, frames)
     t0 = time.perf_counter()
     bundle = serve.export_detector(model, IMG_H, IMG_W, batch="dynamic", yuv=True,
-                                   n_rungs=LADDER_RUNGS)
+                                   capacities=LADDER_BASE, n_rungs=LADDER_RUNGS)
     export_s = time.perf_counter() - t0
     rungs = bundle.meta["capacity_rungs"]
     assert rungs[-1] == OPEN_CAPS, rungs
@@ -2201,6 +2227,8 @@ def phase_dynamic_bundle(torch, device, flagship, frames, work, kind, card):
                                 kind, card)
         cf.restore(saved)
         cf.set("nms_on_device", True)
+        # the live detector re-dispatches as far as the bundle's ladder goes
+        cf.set("cascade_saturation_max_retries", LADDER_RUNGS - 1)
         torch.cuda.empty_cache()
         _ladder_walk(torch, device, frames, kind, card)
         cf.restore(saved)
@@ -3164,6 +3192,384 @@ def phase_inception(torch, device, frames, kind, card):
     return holds
 
 
+MESH_TRAIN = dict(n_pos=1600, n_neg=3200, size=24, batch=1200)  # 4 ragged steps an epoch
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _mesh_frames(torch, model, mesh, caps, frames, kind, card, label):
+    """30a/30c. The 16 VGA YUV frames through a frame-sharded detector
+    against the single-device one at ``caps``: flips as phase 18 counts
+    them, the launches of the counted sharded batch, the walls, and the
+    shards' and the gather's part of one chunk. Returns (launches of K1,
+    K2, K4, K3)."""
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+    from rapidobjectdetectionusingcascadedcnns_torch.parallel import mesh as mesh_mod
+
+    single = cascade.CascadeDetector(model, capacity_schedule=caps)
+    sharded = cascade.CascadeDetector(model, capacity_schedule=caps, mesh=mesh)
+    ref = _quietly(single.detect_batch_yuv420, frames)
+    _quietly(sharded.detect_batch_yuv420, frames)  # warm-up
+    sharded.redispatches = 0
+    torch.cuda.synchronize()
+    _reset_launches()
+    got = _quietly(sharded.detect_batch_yuv420, frames)
+    launches = tuple(m.LAUNCHES for m in _kernel_modules())
+    pairs = [_flips(a, b) for a, b in zip(got, ref)]
+    n_flips = sum(len(p[0]) for p in pairs)
+    survivors = sum(len(p[2] | p[3]) for p in pairs)
+    assert n_flips <= BORDERLINE_FRACTION * max(survivors, 1), [len(p[0]) for p in pairs]
+    same_boxes = sum(
+        sorted(map(tuple, a.boxes.tolist())) == sorted(map(tuple, b.boxes.tolist()))
+        for a, b in zip(got, ref))
+    walls = {}
+    for name, det in (("single", single), ("sharded", sharded)):
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _quietly(det.detect_batch_yuv420, frames)
+            runs.append(time.perf_counter() - t0)
+        walls[name] = statistics.median(runs)
+    # one chunk's parts: both shards enqueued and finished, then the gather
+    entry = sharded._plan_and_table(IMG_H, IMG_W)
+    rows = mesh_mod.split_rows(len(frames), mesh)
+    shard_ms, gather_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts = [sharded._run_shard(frames[r], True, caps, entry, None, k)
+                 for k, r in enumerate(rows)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mesh_mod.gather(mesh, parts)
+        torch.cuda.synchronize()
+        shard_ms.append((t1 - t0) * 1e3)
+        gather_ms.append((time.perf_counter() - t1) * 1e3)
+    s_ms, g_ms = statistics.median(shard_ms), statistics.median(gather_ms)
+    print("mesh ({}): frame-sharded over {} vs one device at capacities {}: flips {} of {} "
+          "survivors (allowed {:.1f}), NMS boxes equal in {} of {} frames; survivors per stage "
+          "sharded {} single {}; launches K1 {} K2 {} K4 {} K3 {}, re-dispatches {} in the "
+          "counted batch; 16-frame batch {:.4f} s sharded vs {:.4f} s single (median of 3); one "
+          "chunk: shards {:.3f} ms, gather {:.3f} ms ({:.2%} of the chunk); on {} [{}]".format(
+              label, mesh, caps, n_flips, survivors, BORDERLINE_FRACTION * survivors,
+              same_boxes, len(got), [r.n_survivors_per_stage for r in got[:4]],
+              [r.n_survivors_per_stage for r in ref[:4]], *launches, sharded.redispatches,
+              walls["sharded"], walls["single"], s_ms, g_ms, g_ms / (s_ms + g_ms), kind, card))
+    return launches
+
+
+def _mesh_window_sharded(torch, model, mesh, frame, kind, card):
+    """30b. One dense 450x450 frame at scale factor 1.005 with its windows
+    split over the mesh, in crop and in gather mode, against ``detect``:
+    survivor sets and NMS boxes, the launches of the counted crop-mode run
+    and the walls. Returns (K1 launches of that run, the default
+    capacities)."""
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+    from rapidobjectdetectionusingcascadedcnns_torch.parallel import window_shard
+
+    # enough retries to reach the open rung: a truncated result depends on
+    # the stage-0 order, which is K2's scheduled order on one device and the
+    # plan's order on the window-sharded path (as in phase 9)
+    caps, rungs = cascade.default_capacity_schedule(DENSE_WINDOWS, model.n_nets), 0
+    while caps is not None:
+        caps = cascade.escalate_capacities(caps, DENSE_WINDOWS)
+        rungs += caps is not None
+    cf.set("cascade_saturation_max_retries", rungs)
+    det = cascade.CascadeDetector(model)
+    k1 = None
+    for mode in ("crop", "gather"):
+        cf.set("window_extraction_mode", mode)
+        ref = _quietly(det.detect, frame)
+        _quietly(window_shard.detect_window_sharded, det, frame, mesh)  # warm-up
+        torch.cuda.synchronize()
+        _reset_launches()
+        det.redispatches = 0
+        t0 = time.perf_counter()
+        got = _quietly(window_shard.detect_window_sharded, det, frame, mesh)
+        sharded_s = time.perf_counter() - t0
+        launches = tuple(m.LAUNCHES for m in _kernel_modules())
+        if mode == "crop":
+            k1 = launches[0]
+            assert launches[1:] == (0, 0, 0), launches  # K1 only on shard-local boxes
+        flips, allowed, _, _ = _flips(got, ref)
+        assert len(flips) <= allowed, (mode, len(flips), sorted(flips)[:20])
+        same = sorted(map(tuple, got.boxes.tolist())) == sorted(map(tuple, ref.boxes.tolist()))
+        assert same or flips, mode
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _quietly(det.detect, frame)
+        single_s = time.perf_counter() - t0
+        print("mesh: window-sharded dense frame ({} mode, {} windows) over {}: survivors per "
+              "stage {} vs detect {}, flips {} (allowed {:.1f}), NMS boxes equal {}; launches "
+              "K1 {} K2 {} K4 {} K3 {}, re-dispatches {}; {:.4f} s vs detect {:.4f} s; on {} "
+              "[{}]".format(mode, got.n_windows, mesh, got.n_survivors_per_stage,
+                            ref.n_survivors_per_stage, len(flips), allowed, same, *launches,
+                            det.redispatches, sharded_s, single_s, kind, card))
+    cf.set("window_extraction_mode", "auto")
+    return k1, cascade.default_capacity_schedule(DENSE_WINDOWS, 3)
+
+
+def _mesh_training(torch, mesh, kind, card):
+    """30d. A few data-parallel steps of the 24 px stage at the reference
+    default width (conv [32], fc1 512) in f32 with TF32 off, online
+    augmentation and dropout 0.5, over the mesh against one device from
+    the same seed: losses and parameters."""
+    import numpy as np
+
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.train import cascade_trainer as ct
+    from rapidobjectdetectionusingcascadedcnns_torch.train import train_step
+    from rapidobjectdetectionusingcascadedcnns_torch.train.trainer import SingleNetTrainer
+    from rapidobjectdetectionusingcascadedcnns_torch.utils import log
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    for key, value in (("batch_size", MESH_TRAIN["batch"]), ("epochs_total", 1),
+                       ("compute_dtype", "float32"), ("data_augmentation_online", True),
+                       ("dropout_rate", 0.5), ("n_max_constant_evals", None)):
+        cf.set(key, value)
+    size = MESH_TRAIN["size"]
+    t0 = time.perf_counter()
+    ds = ct.SyntheticProvider(MESH_TRAIN["n_pos"], MESH_TRAIN["n_neg"], [size], seed=0).dataset(size)
+    corpus_s = time.perf_counter() - t0
+    log.set_echo(False)
+    try:
+        runs = {}
+        for name, kwargs in (("mesh", {"mesh": mesh}), ("single", {"device": mesh[0]})):
+            trainer = SingleNetTrainer(ds, f_beta=None, seed=0, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train()
+            torch.cuda.synchronize()
+            runs[name] = (trainer, time.perf_counter() - t0)
+    finally:
+        log.set_echo(True)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    (tm, mesh_s), (ts, single_s) = runs["mesh"], runs["single"]
+    lm, ls = tm.losses(), ts.losses()
+    assert lm.shape == ls.shape and len(lm) >= 2, (lm.shape, ls.shape)
+    np.testing.assert_allclose(lm, ls, rtol=1e-4)
+    param_err = 0.0
+    for a, b in zip(train_step.param_leaves(tm.state.params),
+                    train_step.param_leaves(ts.state.params)):
+        x, y = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+        np.testing.assert_allclose(x, y, rtol=1e-2, atol=1e-4)
+        param_err = max(param_err, float(np.max(np.abs(x - y))))
+    print("mesh training ({} px, conv {}, fc1 {}, f32 TF32 off, augmentation, dropout 0.5, "
+          "batch {} over {}): {} steps, losses mesh {} single {}, max |loss diff| {:.3g}, max "
+          "|param diff| {:.3g}; {:.2f} s vs {:.2f} s (corpus {:.2f} s on the host); on {} "
+          "[{}]".format(size, cf.get("conv_filter_sizes"), cf.get("fc1_size"),
+                        MESH_TRAIN["batch"], mesh, len(lm), np.round(lm, 5).tolist(),
+                        np.round(ls, 5).tolist(), float(np.max(np.abs(lm - ls))), param_err,
+                        mesh_s, single_s, corpus_s, kind, card))
+
+
+def _mesh_multihost(torch, device, kind, card):
+    """30e. ``multihost.initialize`` from the standard environment with NCCL
+    at world size 1, and the rehearsal in the group against the rehearsal
+    without one."""
+    import os
+
+    import torch.distributed as dist
+
+    from rapidobjectdetectionusingcascadedcnns_torch.parallel import multihost
+
+    alone = multihost.rehearsal(device=device)
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()), "RANK": "0",
+           "WORLD_SIZE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        assert multihost.initialize(device=device)
+        init_s = time.perf_counter() - t0
+        backend = dist.get_backend()
+        grouped = multihost.rehearsal()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    assert backend == "nccl", backend
+    assert grouped["eval_total"] == alone["eval_total"] == 32
+    assert abs(grouped["loss"] - alone["loss"]) <= 2e-6 * abs(alone["loss"]), (grouped, alone)
+    print("mesh multihost: initialize ({}, world size 1) {:.2f} s; rehearsal loss {} in the "
+          "group, {} alone, eval total {}; on {} [{}]".format(
+              backend, init_s, grouped["loss"], alone["loss"], grouped["eval_total"], kind, card))
+
+
+def _mesh_bundle(torch, model, mesh, caps, frames, kind, card):
+    """30f. A frame-sharded static bundle of the flagship's VGA YUV program
+    (16 frames a call, 8 a shard, 1 rung), saved, loaded with the mesh and
+    serving the 16 frames equal to the live frame-sharded detector; both
+    with re-dispatch off, so a frame that saturates the one rung is
+    truncated alike (rank compaction)."""
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch import serve
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+
+    cf.set("cascade_saturation_redispatch", False)
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        t0 = time.perf_counter()
+        bundle = serve.export_detector(model, IMG_H, IMG_W, batch=N_FRAMES, yuv=True,
+                                       capacities=caps, n_rungs=1, mesh=mesh)
+        export_s = time.perf_counter() - t0
+        serve.save_bundle(bundle, work)
+        t0 = time.perf_counter()
+        served_det = serve.load_bundle(work, mesh=mesh)
+        load_s = time.perf_counter() - t0
+        _reset_launches()
+        served = _quietly(served_det.detect_batch, frames)
+        launches = tuple(m.LAUNCHES for m in _kernel_modules())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    live = _quietly(cascade.CascadeDetector(model, capacity_schedule=caps,
+                                            mesh=mesh).detect_batch_yuv420, frames)
+    for a, b in zip(served, live):
+        flips, allowed, _, _ = _flips(a, b)
+        assert not flips and a.n_survivors_per_stage == b.n_survivors_per_stage, (
+            sorted(flips)[:20], a.n_survivors_per_stage, b.n_survivors_per_stage)
+        assert sorted(map(tuple, a.boxes.tolist())) == sorted(map(tuple, b.boxes.tolist()))
+    print("mesh bundle (static, YUV, {} frames a call over {}: programs of {}, capacities {}, 1 "
+          "rung): export {:.2f} s, load {:.2f} s; 16 frames served equal to the live "
+          "frame-sharded detector; launches K1 {} K2 {} K4 {} K3 {}; on {} [{}]".format(
+              len(frames), mesh, bundle.meta["max_batch"], caps, export_s, load_s, *launches,
+              kind, card))
+
+
+def _mesh_window_bundle(torch, model, mesh, frame, kind, card):
+    """30g. A window-sharded bundle of the dense frame's cascade (crop mode,
+    the default capacities, 1 rung), saved, loaded with the mesh and
+    serving the frame equal to the live window-sharded detection, both
+    with re-dispatch off (rank compaction alike)."""
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch import serve
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+    from rapidobjectdetectionusingcascadedcnns_torch.parallel import window_shard
+
+    cf.set("window_extraction_mode", "crop")
+    cf.set("cascade_saturation_redispatch", False)
+    work = tempfile.mkdtemp(prefix="chip_smoke_window_bundle_")
+    try:
+        t0 = time.perf_counter()
+        bundle = serve.export_window_sharded(model, *DENSE_HW, mesh, n_rungs=1)
+        export_s = time.perf_counter() - t0
+        serve.save_bundle(bundle, work)
+        t0 = time.perf_counter()
+        served_det = serve.load_bundle(work, mesh=mesh)
+        load_s = time.perf_counter() - t0
+        _quietly(served_det.detect, frame)  # warm-up
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        served = _quietly(served_det.detect, frame)
+        served_s = time.perf_counter() - t0
+        launches = tuple(m.LAUNCHES for m in _kernel_modules())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    live = _quietly(window_shard.detect_window_sharded, cascade.CascadeDetector(model), frame,
+                    mesh)
+    flips, _, _, _ = _flips(served, live)
+    assert not flips and served.n_survivors_per_stage == live.n_survivors_per_stage, (
+        sorted(flips)[:20], served.n_survivors_per_stage, live.n_survivors_per_stage)
+    assert sorted(map(tuple, served.boxes.tolist())) == sorted(map(tuple, live.boxes.tolist()))
+    assert launches[0] >= 2 * mesh.size and launches[1:] == (0, 0, 0), launches
+    print("mesh window-sharded bundle ({}x{} at {}, crop mode, capacities {}, 1 rung, {} "
+          "programs over {}): export {:.2f} s, load {:.2f} s; served equal to the live "
+          "window-sharded detection (survivors {}) in {:.4f} s; launches K1 {} K2 {} K4 {} K3 "
+          "{}; on {} [{}]".format(DENSE_HW[0], DENSE_HW[1], DENSE_WSF,
+                                  bundle.meta["capacity_rungs"][0], len(bundle.programs), mesh,
+                                  export_s, load_s, served.n_survivors_per_stage, served_s,
+                                  *launches, kind, card))
+
+
+def phase_meshes(torch, device, flagship, frames, dense, kind, card):
+    """30. Meshes on the card: a 2-shard mesh (cuda:0, cuda:0) with phase
+    18's flagship at its operating point. Returns the ``kernels`` entries
+    of K1 and K2 at the shard-local shapes."""
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import pyramid, windows_sched
+    from rapidobjectdetectionusingcascadedcnns_torch.parallel import mesh as mesh_mod
+
+    t_phase = time.perf_counter()
+    saved = cf.snapshot()
+    mesh = mesh_mod.get_mesh(devices=(device, device))
+    model, caps = flagship["model"], flagship["caps"]
+    holds = []
+    try:
+        _flagship_settings(cf)
+        cf.set("nms_on_device", False)  # host NMS, as phase 18c
+        # 30a. frame-sharded gather mode (K1 re-extracts on each shard)
+        k1, _, _, _ = _mesh_frames(torch, model, mesh, caps, frames, kind, card, "gather mode")
+        planes, coords = vga_k1_inputs(torch, device, cascade.CascadeDetector(model),
+                                       frames[:N_FRAMES // 2])
+        holds.append(("K1 crop_and_resize (flagship, frame-sharded VGA over {}, {} frames a "
+                      "shard)".format(mesh, N_FRAMES // 2), "resample.cu",
+                      "ops/windows_pallas.py:63", k1,
+                      phase_k1(torch, "frame-sharded VGA shard", planes, coords,
+                               {24: caps[0], 48: caps[1]})))
+        # 30c. frame-sharded crop mode: K2 per shard over the full plan's schedule
+        cf.set("window_extraction_mode", "crop")
+        _, k2, _, _ = _mesh_frames(torch, model, mesh, caps, frames, kind, card, "crop mode")
+        cf.set("window_extraction_mode", "auto")
+        assert k2 >= mesh.size and k2 % mesh.size == 0, k2  # one K2 launch a shard a dispatch
+        plan = pyramid.build_plan(IMG_H, IMG_W, 12, 12, 0.075, 1.1)
+        sched = windows_sched.schedule_for_plan(plan, 12, 12)
+        holds.append(("K2 scheduled stage-0 extraction (flagship, frame-sharded VGA crop mode "
+                      "over {}, {} frames a shard)".format(mesh, N_FRAMES // 2), "sched.cu",
+                      "ops/windows_sched.py:259", k2,
+                      _k2_hold(torch, planes, plan, sched, "frame-sharded VGA shard")))
+        del planes
+        torch.cuda.empty_cache()
+        # 30b. one dense frame's windows over the mesh
+        cf.set("window_scale_factor", DENSE_WSF)
+        k1_w, dense_caps = _mesh_window_sharded(torch, model, mesh, dense[0], kind, card)
+        _mesh_window_bundle(torch, model, mesh, dense[0], kind, card)
+        cf.set("window_scale_factor", 1.1)
+        cf.set("window_extraction_mode", "auto")
+        cf.set("cascade_saturation_redispatch", True)
+        planes, coords = dense_k1_inputs(torch, device, dense[:1])
+        chunk = int(cf.get("inference_chunk_size"))
+        holds.append(("K1 crop_and_resize (flagship, window-sharded dense frame over {}: "
+                      "stage 0's {}-box chunks and each shard's half of {})".format(
+                          mesh, chunk, dense_caps), "resample.cu", "ops/windows_pallas.py:63",
+                      k1_w,
+                      phase_k1(torch, "window-sharded dense shard", planes, coords,
+                               {12: chunk, 24: dense_caps[0] // 2, 48: dense_caps[1] // 2})))
+        del planes
+        torch.cuda.empty_cache()
+        # 30d-f. training, the process group, a frame-sharded bundle
+        _mesh_training(torch, mesh, kind, card)
+    finally:
+        cf.restore(saved)
+    saved = cf.snapshot()
+    try:
+        _flagship_settings(cf)
+        cf.set("nms_on_device", False)
+        _mesh_multihost(torch, device, kind, card)
+        _mesh_bundle(torch, model, mesh, caps, frames, kind, card)
+    finally:
+        cf.restore(saved)
+    print("mesh: unverified on this one-card host: NCCL collectives across two cards, and two "
+          "cards' shards overlapping")
+    print("phase 30: {:.1f} s".format(time.perf_counter() - t_phase))
+    return holds
+
+
 def _kernel_line(name, source, replaces, launches, m):
     return {
         "name": name,
@@ -3317,6 +3723,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     k1_inception = phase_inception(torch, device, frames, kind, card)
 
+    # ---- 30. meshes ---------------------------------------------------------------
+    torch.cuda.empty_cache()
+    mesh_holds = phase_meshes(torch, device, flagship, frames, dense, kind, card)
+
     loaded = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "rapidobjectdetectionusingcascadedcnns_tpu")
@@ -3373,6 +3783,7 @@ def main() -> int:
     kernels += [_kernel_line("K1 crop_and_resize (Inception cascade, {})".format(what),
                              "resample.cu", "ops/windows_pallas.py:63", launches, m)
                 for what, launches, m in k1_inception]
+    kernels += [_kernel_line(*hold) for hold in mesh_holds]
     if fddb_app["unscheduled"]:
         kernels.append(_kernel_line(
             "K1 crop_and_resize (flagship, FDDB app stage 0 at the unscheduled sizes {}, "

@@ -1,19 +1,22 @@
-"""Host-parallel input pipeline: batch prefetching (the port's copy of
-``PrefetchIterator`` from the JAX package's ``data/prefetch.py``).
+"""Host-parallel input pipeline: batch prefetching and the per-process
+corpus split (the port's copies of ``PrefetchIterator`` and
+``shard_for_host`` from the JAX package's ``data/prefetch.py``).
 
 The reference's only input concurrency is a ThreadPoolExecutor around window
 extraction (app/abstract_inference_app.py:62-64). :class:`PrefetchIterator`
 runs a background thread that assembles the next batches (index gather and
 any host-side work) while the card executes the current step, so host
-latency hides behind device time. The per-host sharding of the JAX module
-(``shard_for_host``) comes with the meshes (ROADMAP Queue A item 6).
+latency hides behind device time. :func:`shard_for_host` splits a corpus
+over the processes of a ``torch.distributed`` group.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, Optional
+from typing import Iterator, List, Optional, Sequence, TypeVar
+
+T = TypeVar("T")
 
 
 class PrefetchIterator:
@@ -81,3 +84,21 @@ class PrefetchIterator:
                 raise self._error
             raise StopIteration
         return item
+
+
+def shard_for_host(
+    items: Sequence[T],
+    process_index: Optional[int] = None,
+    process_count: Optional[int] = None,
+) -> List[T]:
+    """Deterministic per-process partition (strided). Rank and world size
+    default to the ``torch.distributed`` group's when one is initialised,
+    else 0 and 1. Shuffle the corpus before sharding: a strided split can
+    alias periodic label patterns."""
+    if process_index is None or process_count is None:
+        import torch.distributed as dist
+
+        grouped = dist.is_available() and dist.is_initialized()
+        process_index = dist.get_rank() if grouped else 0
+        process_count = dist.get_world_size() if grouped else 1
+    return list(items[process_index::process_count])

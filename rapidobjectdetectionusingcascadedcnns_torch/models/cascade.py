@@ -34,8 +34,12 @@ result equals the reference's unbounded survivor sets. A K4 big-class
 overflow is saturation too, and ends in a re-run with K1 if escalation
 cannot cure it.
 
-Not ported yet, and raising ``NotImplementedError`` rather than being
-rerouted: meshes (ROADMAP Queue A item 6).
+With a mesh (``parallel/mesh.py``) a chunk of frames is padded to a
+multiple of the mesh size with copies of its last frame and split: each
+shard runs :func:`cascade_core` on its device with its own copy of the
+weights and tables (every frame keeps its full plan, so a crop-mode stage
+0 still runs K2 per shard), and the packed rows come back to mesh device 0.
+One huge image's windows are sharded by ``parallel/window_shard.py``.
 """
 
 from __future__ import annotations
@@ -328,17 +332,17 @@ def _reextract(images, boxes, size: int, cap: int, resample_impl: str,
                high_precision: bool, planes):
     """(B, cap, size, size, C) windows of (B, cap, 4) boxes and the per-frame
     K4 big-class overflow: K4 (``dyn_reextract="on"``) where its gate
-    admits the geometry, else K1 (0 overflow). A window K4 cannot stage
-    (the Inception stage's 299 px) raises its ``ValueError`` rather than
-    going to K1 in its place."""
+    (``windows_dyn.dyn_supported``, the JAX package's, from shapes alone)
+    admits the geometry, else K1 (0 overflow). The gate sends the
+    Inception stage's 299 px windows to K1, as in the JAX package; a
+    geometry it admits but K4 cannot stage raises K4's ``ValueError``."""
     b, img_h, img_w = images.shape[0], images.shape[1], images.shape[2]
-    wants_dyn = resample_impl == "pallas2dyn" and not high_precision
-    if wants_dyn:
+    use_dyn = (resample_impl == "pallas2dyn" and not high_precision
+               and windows_dyn.dyn_supported(img_h, img_w, size, size, cap))
+    if use_dyn:
         from ..ops import windows_dyn_cuda
 
         windows_dyn_cuda.launch_geometry(size, size, images.shape[3])
-    use_dyn = wants_dyn and windows_dyn.dyn_supported(img_h, img_w, size, size, cap)
-    if use_dyn:
         wins, _n_big, overflow = windows_dyn.extract_rowbound(
             images, boxes, size, size,
             big_cap=windows_dyn.default_big_cap(cap, size, size, img_h),
@@ -429,6 +433,44 @@ def _stage0_apply(
     return probs, bneck, None, None
 
 
+def stage_on_boxes(images, planes, boxes, bottleneck, params, cfg: cnn.StageConfig,
+                   stats, resample_impl: str, high_precision: bool, chunk: int):
+    """A later stage over (B, n, 4) boxes of (B, H, W, C) float32 frames:
+    re-extraction (:func:`_reextract`) and the stage CNN, reading the
+    previous stage's (B, n, F) ``bottleneck`` where the stage takes one.
+    Returns (foreground probs (B, n), bottleneck (B, n, F'), K4 overflow
+    (B,)). An Inception stage handles its boxes in chunks whose 299 px
+    windows and trunk activations fit ``inception.rows_per_chunk`` (rows
+    are independent: the same result)."""
+    b, cap = images.shape[0], boxes.shape[1]
+    size = cfg.input_size
+    mean, std = stats
+    step = cap
+    if cfg.backbone == "inception":
+        from . import inception
+
+        step = max(1, inception.rows_per_chunk(size) // _upper_bound(b))
+    probs_parts, bneck_parts, overflow = [], [], None
+    for s in range(0, cap, step):
+        n = min(step, cap - s)
+        wins, over = _reextract(
+            images, boxes[:, s : s + n], size, n, resample_impl, high_precision, planes
+        )
+        overflow = over if overflow is None else overflow + over
+        bneck_in = (
+            bottleneck[:, s : s + n].reshape(b * n, -1)
+            if cfg.bottleneck_in_size is not None else None
+        )
+        probs_c, bneck_c = _apply_stage_rows(
+            params, cfg, wins.reshape(b * n, size, size, -1), bneck_in, mean, std, chunk,
+        )
+        probs_parts.append(probs_c[:, 1].reshape(b, n))
+        bneck_parts.append(bneck_c.reshape(b, n, -1))
+    p = probs_parts[0] if len(probs_parts) == 1 else torch.cat(probs_parts, 1)
+    bneck = bneck_parts[0] if len(bneck_parts) == 1 else torch.cat(bneck_parts, 1)
+    return p, bneck, overflow
+
+
 def cascade_core(
     images: torch.Tensor,
     coords_norm: torch.Tensor,
@@ -495,38 +537,12 @@ def cascade_core(
         bottleneck = torch.gather(
             bottleneck, 1, keep[:, :, None].expand(b, cap, bottleneck.shape[2])
         )
-        cfg_i = stage_configs[i]
-        size_i = cfg_i.input_size
         boxes = coords_norm[window_ids].float()  # (B, cap, 4)
-        mean_i, std_i = stage_stats[i]
-        # boxes per frame handled at once: all of them, but for an Inception
-        # stage, whose 299 px windows and trunk activations are bounded by
-        # inception.rows_per_chunk (rows are independent: the same result)
-        step = cap
-        if cfg_i.backbone == "inception":
-            from . import inception
-
-            step = max(1, inception.rows_per_chunk(size_i) // _upper_bound(b))
-        probs_parts, bneck_parts, overflow = [], [], None
-        for s in range(0, cap, step):
-            n = min(step, cap - s)
-            wins, over = _reextract(
-                images, boxes[:, s : s + n], size_i, n, resample_impl, high_precision, planes
-            )
-            overflow = over if overflow is None else overflow + over
-            bneck_in = (
-                bottleneck[:, s : s + n].reshape(b * n, -1)
-                if cfg_i.bottleneck_in_size is not None else None
-            )
-            probs_c, bneck_c = _apply_stage_rows(
-                stage_params[i], cfg_i, wins.reshape(b * n, size_i, size_i, -1),
-                bneck_in, mean_i, std_i, chunk,
-            )
-            probs_parts.append(probs_c[:, 1].reshape(b, n))
-            bneck_parts.append(bneck_c.reshape(b, n, -1))
+        p_i, bottleneck, overflow = stage_on_boxes(
+            images, planes, boxes, bottleneck, stage_params[i], stage_configs[i],
+            stage_stats[i], resample_impl, high_precision, chunk,
+        )
         overflows.append(overflow)
-        bottleneck = bneck_parts[0] if len(bneck_parts) == 1 else torch.cat(bneck_parts, 1)
-        p_i = probs_parts[0] if len(probs_parts) == 1 else torch.cat(probs_parts, 1)
         alive = alive & (p_i > thresholds[i])
         if confidence_mode == cf.FINAL_CONFIDENCE_CALCULATION_AVG:
             conf = conf + p_i
@@ -572,19 +588,25 @@ def pack_result(window_ids, conf, alive, diagnostics, *nms_tail) -> torch.Tensor
 class CascadeDetector:
     """Host orchestration around :func:`cascade_core`.
 
-    One instance per :class:`CascadeModel`; it runs on the model's device.
-    Pyramid plans and their device tables are cached per image size.
+    One instance per :class:`CascadeModel`; it runs on the model's device,
+    or with ``mesh`` (``parallel.mesh.Mesh``, or a tuple of devices) on
+    every mesh device: frame chunks are sharded over the mesh, the weights
+    replicated once per distinct device, and the results gathered on mesh
+    device 0 (JAX ``CascadeDetector(mesh=)``). Pyramid plans and their
+    device tables are cached per image size.
     """
 
     def __init__(self, model: CascadeModel, capacity_schedule=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device serving is not ported yet (ROADMAP Queue A item 6)"
-            )
         if model.n_nets < 2:
             raise ValueError("a cascade must consist of at least two nets")
         self.model = model
+        self.mesh = None
         self.device = model.device
+        if mesh is not None:
+            from ..parallel import mesh as mesh_mod
+
+            self.mesh = mesh_mod.as_mesh(mesh)
+            self.device = self.mesh[0]
         self.redispatches = 0  # saturation re-runs, for diagnostics
         self._saturation_warned = False
         self._plan_cache: Dict[tuple, list] = {}
@@ -601,12 +623,21 @@ class CascadeDetector:
         self._params_device = tuple(
             cnn.cast_params(p, c) for p, c in zip(model.stage_params, model.stage_configs)
         )
+        # per shard: (params, stats) on its device (one copy per device)
+        self._shards = [(self._params_device, self._stats_device)]
+        if self.mesh is not None:
+            self._shards = list(zip(
+                mesh_mod.replicate(self.mesh, self._params_device),
+                mesh_mod.replicate(self.mesh, self._stats_device),
+            ))
+            self._params_device = self._shards[0][0]
 
     def _plan_and_table(self, img_h: int, img_w: int) -> list:
         """[plan, window table, coords_norm (N, 4) int64 and boxes_float
-        (N, 4) float32 on the device, level indices], cached per size and
-        pyramid config. The level indices stay None until gather mode asks
-        for them (:meth:`_level_indices`); crop mode never does."""
+        (N, 4) float32 on the device, level indices, the other mesh
+        devices' copies], cached per size and pyramid config. The level
+        indices stay None until gather mode asks for them
+        (:meth:`_level_indices`); crop mode never does."""
         size0 = self.model.input_sizes[0]
         mwl = float(cf.get("min_window_length"))
         wsf = float(cf.get("window_scale_factor"))
@@ -620,7 +651,7 @@ class CascadeDetector:
             table["coords_norm"].astype(np.int64), device=self.device
         )
         boxes_float = torch.as_tensor(table["boxes_float"], device=self.device)
-        entry = [plan, table, coords_norm, boxes_float, None]
+        entry = [plan, table, coords_norm, boxes_float, None, {}]
         if len(self._plan_cache) >= 128:
             self._plan_cache.pop(next(iter(self._plan_cache)))
         self._plan_cache[key] = entry
@@ -632,6 +663,22 @@ class CascadeDetector:
         if entry[4] is None:
             entry[4] = level_indices(entry[0], self.device)
         return entry[4]
+
+    def _tables_on(self, entry: list, device: torch.device, mode: str):
+        """(coords_norm, boxes_float, level indices or None) of a plan's
+        cache entry on ``device``: the entry's own on the detector's
+        device, else a copy made on first use."""
+        indices = None
+        if device == self.device:
+            if mode == "gather":
+                indices = self._level_indices(entry)
+            return entry[2], entry[3], indices
+        copy = entry[5].get(device)
+        if copy is None:
+            copy = entry[5][device] = [entry[2].to(device), entry[3].to(device), None]
+        if mode == "gather" and copy[2] is None:
+            copy[2] = level_indices(entry[0], device)
+        return copy[0], copy[1], copy[2]
 
     def detect(self, image: np.ndarray) -> DetectionResult:
         """Run the full pyramid cascade on one (H, W, 3) uint8 image."""
@@ -680,37 +727,61 @@ class CascadeDetector:
         packed (B, row) tensor on the device (not yet synchronised).
         ``resample`` overrides the configured kernels (the K1 re-run after
         a K4 overflow). With ``nms_on_device`` the program ends in the
-        groupRectangles tail."""
-        plan, _, coords_norm, boxes_float, _ = entry
+        groupRectangles tail. With a mesh the chunk is padded to a multiple
+        of the mesh size with its last frame and split; every shard is
+        enqueued before the rows are gathered on mesh device 0, and the
+        padding rows are dropped."""
+        if self.mesh is None:
+            return self._run_shard(frames, yuv, caps, entry, resample, 0)
+        from ..parallel import mesh as mesh_mod
+
+        n = len(frames)
+        padded = list(frames) + [frames[-1]] * (-n % self.mesh.size)
+        parts = [
+            self._run_shard(padded[rows], yuv, caps, entry, resample, k)
+            for k, rows in enumerate(mesh_mod.split_rows(len(padded), self.mesh))
+        ]
+        return mesh_mod.gather(self.mesh, parts)[:n]
+
+    def _run_shard(self, frames: Sequence, yuv: bool, caps, entry, resample: Optional[str],
+                   shard: int):
+        """:meth:`_run_chunk` of one shard's frames on its device."""
+        from ..parallel.mesh import on_device
+
+        device = self.device if self.mesh is None else self.mesh[shard]
+        params, stats = self._shards[shard]
+        plan = entry[0]
         mode = resolve_extraction_mode(plan)
-        if yuv:
-            y = torch.as_tensor(np.stack([f[0] for f in frames]), device=self.device)
-            uv = torch.as_tensor(np.stack([f[1] for f in frames]), device=self.device)
-            images = yuv420_to_rgb(y, uv)
-        else:
-            images = torch.as_tensor(np.stack(frames), device=self.device).float()
+        coords_norm, boxes_float, indices = self._tables_on(entry, device, mode)
         n_stages = self.model.n_nets
-        out = cascade_core(
-            images,
-            coords_norm,
-            boxes_float,
-            self._params_device,
-            self._stats_device,
-            plan,
-            self.model.stage_configs,
-            tuple(caps),
-            cf.get("final_confidence_calculation"),
-            tuple(resolve_thresholds(n_stages)),
-            bool(cf.get("inference_high_precision")),
-            int(cf.get("inference_chunk_size")),
-            resolve_compaction(),
-            self._level_indices(entry) if mode == "gather" else None,
-            mode,
-            resample or resolve_resample_impl(),
-            int(cf.get("nms_opencv_min_neighbors")) if resolve_nms_on_device() else -1,
-            float(cf.get("nms_opencv_eps")),
-        )
-        return pack_result(*out)
+        with on_device(device):
+            if yuv:
+                y = torch.as_tensor(np.stack([f[0] for f in frames]), device=device)
+                uv = torch.as_tensor(np.stack([f[1] for f in frames]), device=device)
+                images = yuv420_to_rgb(y, uv)
+            else:
+                images = torch.as_tensor(np.stack(frames), device=device).float()
+            out = cascade_core(
+                images,
+                coords_norm,
+                boxes_float,
+                params,
+                stats,
+                plan,
+                self.model.stage_configs,
+                tuple(caps),
+                cf.get("final_confidence_calculation"),
+                tuple(resolve_thresholds(n_stages)),
+                bool(cf.get("inference_high_precision")),
+                int(cf.get("inference_chunk_size")),
+                resolve_compaction(),
+                indices,
+                mode,
+                resample or resolve_resample_impl(),
+                int(cf.get("nms_opencv_min_neighbors")) if resolve_nms_on_device() else -1,
+                float(cf.get("nms_opencv_eps")),
+            )
+            return pack_result(*out)
 
     def _detect_batch_exact(self, images: Sequence, yuv: bool = False) -> List[DetectionResult]:
         """Same-size frames go through one batched cascade per chunk of

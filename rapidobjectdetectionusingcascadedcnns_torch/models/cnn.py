@@ -240,6 +240,12 @@ def _max_pool_same(h: torch.Tensor, size: int, stride: int) -> torch.Tensor:
     return F.max_pool2d(h, size, stride)
 
 
+def dropout_keep_mask(shape, dropout_keep: float, generator: torch.Generator,
+                      device) -> torch.Tensor:
+    """The keep mask of inverted dropout, drawn from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < dropout_keep
+
+
 def apply_stage(
     params: Params,
     cfg: StageConfig,
@@ -248,6 +254,7 @@ def apply_stage(
     *,
     dropout_keep: float = 1.0,
     generator: Optional[torch.Generator] = None,
+    dropout_mask: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """Forward pass.
 
@@ -262,8 +269,10 @@ def apply_stage(
     inference path pre-casts with :func:`cast_params` instead). With
     ``dropout_keep`` < 1 the classifier input goes through inverted dropout
     with keep-probability semantics (tf.nn.dropout, JAX ``cnn.py:252-280``),
-    its mask drawn from ``generator`` on the input's device; the bottleneck
-    returned is the tensor before dropout.
+    its mask drawn from ``generator`` on the input's device
+    (:func:`dropout_keep_mask`), or given as ``dropout_mask`` (a shard of a
+    mask drawn for a whole batch); the bottleneck returned is the tensor
+    before dropout.
     """
     cdt = cfg.compute_dtype
     if cfg.backbone == "inception":
@@ -292,9 +301,11 @@ def apply_stage(
         bottleneck = fc1
     h2 = bottleneck
     if dropout_keep < 1.0:
-        if generator is None:
-            raise ValueError("dropout requires a generator")
-        keep = torch.rand(h2.shape, generator=generator, device=h2.device) < dropout_keep
+        keep = dropout_mask
+        if keep is None:
+            if generator is None:
+                raise ValueError("dropout requires a generator")
+            keep = dropout_keep_mask(h2.shape, dropout_keep, generator, h2.device)
         h2 = torch.where(keep, h2 / dropout_keep, torch.zeros_like(h2))
     logits = (
         torch.matmul(h2.to(cdt), params["fc2"]["W"].to(cdt)).float()

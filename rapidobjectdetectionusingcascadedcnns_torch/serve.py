@@ -34,8 +34,17 @@ bundle may run on; a saved bundle holds its tensors on the CPU, and
 operators dispatch by device: the CUDA kernels on the card, their plain
 versions on the CPU.
 
-Not ported yet, and raising ``NotImplementedError``: meshes and
-window-sharded bundles (ROADMAP Queue A item 6).
+A frame-sharded bundle (``export_detector(mesh=)``, the serving layout of
+``CascadeDetector(mesh=)``) holds the same single-device program at the
+static batch divided by the mesh size, and records the device count;
+``load_bundle(dir, mesh=)`` loads one copy of it per distinct mesh device
+and splits each call's frames over the mesh.
+
+A window-sharded bundle (``export_window_sharded``, the serving layout of
+``parallel/window_shard.detect_window_sharded``) holds the shard-local parts
+of one image's cascade at fixed shapes, and serves through
+:class:`WindowShardedServingDetector`, which runs the compaction between
+them on mesh device 0.
 """
 
 from __future__ import annotations
@@ -60,7 +69,9 @@ from .ops import nms as nms_ops
 from .ops import rectangles as rect_ops
 from .ops.color import yuv420_to_rgb
 from .ops.pyramid import build_plan, window_table
-from .ops.windows import level_indices
+from .ops.windows import extract_windows, level_indices, to_planes_bf16
+from .parallel import mesh as mesh_mod
+from .parallel import window_shard
 from .utils import log
 from .utils.device import resolve_device, set_numerics
 
@@ -205,6 +216,24 @@ def unflatten_params(
     return tuple(out)
 
 
+def _register_level_indices(module: torch.nn.Module, indices):
+    """Gather mode's level index tables as buffers of ``module``; returns
+    the levels' sizes (None without tables)."""
+    if indices is None:
+        return None
+    for k, (_, _, ys, xs) in enumerate(indices):
+        module.register_buffer("ys{}".format(k), ys)
+        module.register_buffer("xs{}".format(k), xs)
+    return [(sh, sw) for sh, sw, _, _ in indices]
+
+
+def _level_indices_of(module: torch.nn.Module, level_sizes):
+    if level_sizes is None:
+        return None
+    return [(sh, sw, getattr(module, "ys{}".format(k)), getattr(module, "xs{}".format(k)))
+            for k, (sh, sw) in enumerate(level_sizes)]
+
+
 class _CascadeProgram(torch.nn.Module):
     """The batched cascade at one rung's capacities, every knob fixed; the
     pyramid tables and standardisation stats are buffers, the weights an
@@ -219,12 +248,7 @@ class _CascadeProgram(torch.nn.Module):
         for k, (mean, std) in enumerate(tables["stats"]):
             self.register_buffer("mean{}".format(k), mean)
             self.register_buffer("std{}".format(k), std)
-        self.level_sizes = None
-        if tables["indices"] is not None:
-            self.level_sizes = [(sh, sw) for sh, sw, _, _ in tables["indices"]]
-            for k, (_, _, ys, xs) in enumerate(tables["indices"]):
-                self.register_buffer("ys{}".format(k), ys)
-                self.register_buffer("xs{}".format(k), xs)
+        self.level_sizes = _register_level_indices(self, tables["indices"])
 
     def run(self, images: torch.Tensor, flat: List[torch.Tensor]) -> torch.Tensor:
         kn = self.knobs
@@ -233,18 +257,13 @@ class _CascadeProgram(torch.nn.Module):
             (getattr(self, "mean{}".format(k)), getattr(self, "std{}".format(k)))
             for k in range(len(configs))
         )
-        indices = None
-        if self.level_sizes is not None:
-            indices = [
-                (sh, sw, getattr(self, "ys{}".format(k)), getattr(self, "xs{}".format(k)))
-                for k, (sh, sw) in enumerate(self.level_sizes)
-            ]
         out = casc.cascade_core(
             images, self.coords_norm, self.boxes_float,
             unflatten_params(flat, configs, kn["trunks"]), stats,
             kn["plan"], configs, self.capacities, kn["confidence_mode"], kn["thresholds"],
-            kn["high_precision"], kn["chunk"], kn["compaction"], indices,
-            kn["extraction_mode"], kn["resample_impl"], kn["nms_mn"], kn["nms_eps"],
+            kn["high_precision"], kn["chunk"], kn["compaction"],
+            _level_indices_of(self, self.level_sizes), kn["extraction_mode"],
+            kn["resample_impl"], kn["nms_mn"], kn["nms_eps"],
         )
         return casc.pack_result(*out)
 
@@ -268,6 +287,44 @@ def _device_key(device: torch.device) -> str:
     if device.type == "cuda" and device.index is None:
         return "cuda:{}".format(torch.cuda.current_device())
     return str(device)
+
+
+def _check_platforms(device: torch.device, platforms: Optional[Sequence[str]]) -> List[str]:
+    """The device types a bundle exported on ``device`` may load on
+    (default: its own); raises unless they are known and include it."""
+    platforms = list(platforms) if platforms is not None else [device.type]
+    unknown = [p for p in platforms if p not in PLATFORMS]
+    if unknown or device.type not in platforms:
+        raise ValueError(
+            "platforms={}: list device types of {} that include the export "
+            "device's ({})".format(platforms, PLATFORMS, device.type)
+        )
+    return platforms
+
+
+def _plan_and_rungs(model: CascadeModel, img_h: int, img_w: int,
+                    capacities: Optional[Sequence[int]], n_rungs: int):
+    """(plan, capacity rungs) of an export: rung 0 the base capacities,
+    each next one an ``escalate_capacities`` doubling, at most
+    ``n_rungs``."""
+    if model.n_nets < 2:
+        raise ValueError("a cascade must consist of at least two nets")
+    size0 = model.input_sizes[0]
+    plan = build_plan(img_h, img_w, size0, size0, float(cf.get("min_window_length")),
+                      float(cf.get("window_scale_factor")))
+    if plan.n_windows < 1:
+        raise ValueError("Could not extract any windows at this image size")
+    rungs = [list(
+        capacities
+        or cf.get("cascade_capacity_schedule")
+        or casc.default_capacity_schedule(plan.n_windows, model.n_nets)
+    )]
+    while len(rungs) < max(1, n_rungs):
+        nxt = casc.escalate_capacities(rungs[-1], plan.n_windows)
+        if nxt is None:
+            break
+        rungs.append(nxt)
+    return plan, rungs
 
 
 def export_detector(
@@ -300,22 +357,22 @@ def export_detector(
     recorded as ``chunk_hint``), traced from an example of 2 frames so that
     one frame is not special-cased. ``platforms``: the device types the
     bundle may be loaded on, from ``PLATFORMS`` and including the model's
-    (default: the model's alone). ``mesh`` is not ported yet and raises
-    ``NotImplementedError``."""
+    (default: the model's alone). ``mesh``: a ``parallel.mesh.Mesh`` (or a
+    tuple of devices) to serve frame-sharded over; it needs a static batch
+    divisible by the mesh size, and the program is exported at the batch
+    divided by it (``max_batch``), to be loaded with a mesh of that size."""
+    n_devices = 1
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh: frame-sharded bundles are not ported yet (ROADMAP Queue A item 6)"
-        )
+        n_devices = mesh_mod.as_mesh(mesh).size
+        full = int(cf.get("inference_batch_frames")) if batch is None else batch
+        if full == "dynamic":
+            raise ValueError("a frame-sharded export needs a static batch")
+        if full % n_devices:
+            raise ValueError(
+                "batch {} is not divisible by the {}-device mesh".format(full, n_devices))
+        batch = full // n_devices
     device = model.device
-    platforms = list(platforms) if platforms is not None else [device.type]
-    unknown = [p for p in platforms if p not in PLATFORMS]
-    if unknown or device.type not in platforms:
-        raise ValueError(
-            "platforms={}: list device types of {} that include the export "
-            "device's ({})".format(platforms, PLATFORMS, device.type)
-        )
-    if model.n_nets < 2:
-        raise ValueError("a cascade must consist of at least two nets")
+    platforms = _check_platforms(device, platforms)
     impl = resample_impl or casc.resolve_resample_impl()
     if impl == "pallas2dyn":
         raise ValueError(
@@ -324,19 +381,10 @@ def export_detector(
         )
     if impl not in ("pallas", "pallas2"):
         raise ValueError("resample_impl={!r}: export with 'pallas' or 'pallas2'".format(impl))
-    size0 = model.input_sizes[0]
-    mwl = float(cf.get("min_window_length"))
-    wsf = float(cf.get("window_scale_factor"))
-    plan = build_plan(img_h, img_w, size0, size0, mwl, wsf)
-    if plan.n_windows < 1:
-        raise ValueError("Could not extract any windows at this image size")
+    plan, rungs = _plan_and_rungs(model, img_h, img_w, capacities, n_rungs)
     table = window_table(plan)
     n_stages = model.n_nets
-    base_caps = tuple(
-        capacities
-        or cf.get("cascade_capacity_schedule")
-        or casc.default_capacity_schedule(plan.n_windows, n_stages)
-    )
+    size0 = model.input_sizes[0]
     extraction_mode = casc.resolve_extraction_mode(plan)
     high_precision = bool(cf.get("inference_high_precision"))
     nms_mode = str(cf.get("nms"))
@@ -363,13 +411,6 @@ def export_detector(
         example_batch = 2
     else:
         max_batch = example_batch = chunk_hint = int(batch or chunk_hint)
-
-    rungs = [list(base_caps)]
-    while len(rungs) < max(1, n_rungs):
-        nxt = casc.escalate_capacities(rungs[-1], plan.n_windows)
-        if nxt is None:
-            break
-        rungs.append(nxt)
 
     coords_norm = torch.as_tensor(table["coords_norm"].astype(np.int64), device=device)
     tables = {
@@ -418,15 +459,15 @@ def export_detector(
         "export_device": _device_key(device),
         "img_h": img_h,
         "img_w": img_w,
-        "batch": "dynamic" if dynamic else max_batch,
-        "chunk_hint": chunk_hint,
-        "max_batch": max_batch,
+        "batch": "dynamic" if dynamic else max_batch * n_devices,
+        "chunk_hint": chunk_hint * n_devices,
+        "max_batch": max_batch,  # frames a program call takes
         "yuv": yuv,
         "n_stages": n_stages,
         "trunks": list(knobs["trunks"]),  # per stage: None (custom) or the Inception trunk
         "size0": size0,
-        "min_window_length": mwl,
-        "window_scale_factor": wsf,
+        "min_window_length": float(cf.get("min_window_length")),
+        "window_scale_factor": float(cf.get("window_scale_factor")),
         "capacity_rungs": [list(map(int, caps)) for caps in rungs],
         "thresholds": list(knobs["thresholds"]),
         "confidence_mode": knobs["confidence_mode"],
@@ -443,8 +484,8 @@ def export_detector(
         "compute_dtype": str(model.stage_configs[0].compute_dtype).replace("torch.", ""),
         "platforms": platforms,
         "weight_dtypes": [str(w.dtype).replace("torch.", "") for w in flat],
-        "nr_devices": 1,
-        "mesh_axis": None,
+        "nr_devices": n_devices,
+        "mesh_axis": None if mesh is None else mesh_mod.DATA_AXIS,
     }
     return ServingBundle(meta=meta, weights=[w.detach() for w in flat], programs=programs)
 
@@ -459,13 +500,153 @@ def _to_device(program: torch.export.ExportedProgram, src: str, dst: str):
     return program
 
 
-def export_window_sharded(*args, **kwargs) -> ServingBundle:
-    """Window-sharded bundles (one huge image's windows over a mesh) wait
-    for the port of meshes."""
-    raise NotImplementedError(
-        "export_window_sharded: window-sharded bundles are not ported yet "
-        "(ROADMAP Queue A item 6)"
-    )
+class _WindowProgram(torch.nn.Module):
+    """One part of the window-sharded cascade (``parallel/window_shard.py``)
+    at fixed shapes, every knob fixed; the standardisation stats of its
+    stage (and gather mode's level index tables) are buffers, the weights
+    an input. ``role``: ``"extract"`` (gather mode: the whole window tensor
+    of a (1, H, W, 3) uint8 frame, padded to a mesh multiple), ``"stage0"``
+    (a shard's rows: its boxes in crop mode, its windows in gather mode)
+    or a later stage's index (a shard's boxes and incoming bottleneck)."""
+
+    def __init__(self, knobs: dict, tables: dict, role):
+        super().__init__()
+        self.knobs, self.role = knobs, role
+        self.level_sizes = None
+        if role == "extract":
+            self.level_sizes = _register_level_indices(self, tables["indices"])
+        else:
+            mean, std = tables["stats"][0 if role == "stage0" else role]
+            self.register_buffer("mean", mean)
+            self.register_buffer("std", std)
+
+    def forward(self, image: torch.Tensor, *args):
+        kn = self.knobs
+        frame = image.float()
+        if self.role == "extract":
+            wins = extract_windows(frame, kn["plan"], _level_indices_of(self, self.level_sizes))
+            return mesh_mod.pad_to_multiple(wins[0], kn["n_devices"])[0]
+        *rows, flat = args
+        i = 0 if self.role == "stage0" else self.role
+        params = unflatten_params(flat, kn["stage_configs"], kn["trunks"])[i]
+        cfg, stats = kn["stage_configs"][i], (self.mean, self.std)
+        planes = None
+        if not kn["high_precision"] and not (i == 0 and kn["extraction_mode"] == "gather"):
+            planes = to_planes_bf16(frame)
+        if i == 0:
+            return window_shard.shard_stage0(frame, rows[0], kn["plan"], params, cfg, stats,
+                                             kn["chunk"], kn["extraction_mode"],
+                                             kn["high_precision"], planes)
+        return window_shard.shard_stage(frame, rows[0], rows[1], params, cfg, stats, kn["chunk"],
+                                        kn["high_precision"], planes)
+
+
+def export_window_sharded(
+    model: CascadeModel,
+    img_h: int,
+    img_w: int,
+    mesh,
+    *,
+    capacities: Optional[Sequence[int]] = None,
+    n_rungs: int = 3,
+    resample_impl: Optional[str] = None,
+    platforms: Optional[Sequence[str]] = None,
+) -> ServingBundle:
+    """Export one image's cascade with its window axis split over ``mesh``
+    (a ``parallel.mesh.Mesh`` or a tuple of devices; the layout of
+    ``parallel/window_shard.detect_window_sharded``) as a bundle, on the
+    model's device. Its programs are the shard-local parts at fixed shapes:
+    gather mode's window extraction, stage 0 over one shard's rows, and for
+    each rung of the capacity ladder each later stage over one shard's
+    survivors; the compaction between them runs on mesh device 0 when the
+    bundle serves (:class:`WindowShardedServingDetector`), which walks the
+    ladder as the live path re-dispatches. Re-extraction is K1's:
+    ``resample_impl`` "pallas2" or "pallas2dyn" (the JAX signature's) is
+    sent to K1 on this path, as in the JAX package. Loads with a mesh of
+    the same size."""
+    mesh = mesh_mod.as_mesh(mesh)
+    n_dev = mesh.size
+    if resample_impl not in (None, "pallas", "pallas2", "pallas2dyn"):
+        raise ValueError("resample_impl={!r}: a window-sharded bundle re-extracts with K1 "
+                         "('pallas')".format(resample_impl))
+    device = model.device
+    platforms = _check_platforms(device, platforms)
+    plan, rungs = _plan_and_rungs(model, img_h, img_w, capacities, n_rungs)
+    n_stages = model.n_nets
+    size0 = model.input_sizes[0]
+    extraction_mode = casc.resolve_extraction_mode(plan)
+    configs = tuple(model.stage_configs)
+    knobs = {
+        "plan": plan,
+        "stage_configs": configs,
+        "trunks": tuple(trunk_kinds(model.stage_params)),
+        "high_precision": bool(cf.get("inference_high_precision")),
+        "chunk": int(cf.get("inference_chunk_size")),
+        "extraction_mode": extraction_mode,
+        "n_devices": n_dev,
+    }
+    tables = {
+        "stats": [(torch.as_tensor(m, device=device), torch.as_tensor(s, device=device))
+                  for m, s in zip(model.stage_means, model.stage_stds)],
+        "indices": level_indices(plan, device) if extraction_mode == "gather" else None,
+    }
+    flat = flatten_params([cnn.cast_params(p, c) for p, c in zip(model.stage_params, configs)])
+    image = torch.zeros(1, img_h, img_w, 3, dtype=torch.uint8, device=device)
+    n0_pad = window_shard.pad_len(plan.n_windows, n_dev)
+    if extraction_mode == "gather":
+        rows0 = torch.zeros(n0_pad // n_dev, size0, size0, 3, device=device)
+    else:
+        rows0 = torch.zeros(n0_pad // n_dev, 4, device=device)
+    parts = ([("extract", (image,))] if extraction_mode == "gather" else [])
+    parts.append(("stage0", (image, rows0, flat)))
+    for r, caps in enumerate(rungs):
+        for i, cap in enumerate(window_shard.padded_capacities(caps, n_dev), start=1):
+            width = configs[i - 1].bottleneck_out_size
+            parts.append(((i, r), (image, torch.zeros(cap // n_dev, 4, device=device),
+                                   torch.zeros(cap // n_dev, width, device=device), flat)))
+    programs, roles = [], []
+    for role, example in parts:
+        program = torch.export.export(
+            _WindowProgram(knobs, tables, role if role in ("extract", "stage0") else role[0]),
+            example,
+        )
+        program.example_inputs = None  # the weights are stored once, in weights.npz
+        programs.append(program)
+        roles.append(role if isinstance(role, str) else "stage{}@{}".format(*role))
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "program_format": PROGRAM_FORMAT,
+        "kind": "window_sharded",
+        "program_roles": roles,
+        "device": device.type,
+        "export_device": _device_key(device),
+        "img_h": img_h,
+        "img_w": img_w,
+        "n_stages": n_stages,
+        "trunks": list(knobs["trunks"]),
+        "size0": size0,
+        "min_window_length": float(cf.get("min_window_length")),
+        "window_scale_factor": float(cf.get("window_scale_factor")),
+        "capacity_rungs": [list(map(int, caps)) for caps in rungs],
+        "thresholds": list(casc.resolve_thresholds(n_stages)),
+        "confidence_mode": str(cf.get("final_confidence_calculation")),
+        "extraction_mode": extraction_mode,
+        "resample_impl": "pallas",
+        "chunk": knobs["chunk"],
+        "high_precision": knobs["high_precision"],
+        "compaction": casc.resolve_compaction(),
+        "nms_mode": str(cf.get("nms")),
+        "nms_min_neighbors": int(cf.get("nms_opencv_min_neighbors")),
+        "nms_eps": float(cf.get("nms_opencv_eps")),
+        "vertically_enlarge": bool(cf.get("vertically_enlarge_bboxes")),
+        "compute_dtype": str(configs[0].compute_dtype).replace("torch.", ""),
+        "platforms": platforms,
+        "weight_dtypes": [str(w.dtype).replace("torch.", "") for w in flat],
+        "nr_devices": n_dev,
+        "mesh_axis": mesh_mod.DATA_AXIS,
+        "n0_pad": n0_pad,
+    }
+    return ServingBundle(meta=meta, weights=[w.detach() for w in flat], programs=programs)
 
 
 def save_bundle(bundle: ServingBundle, dir_path: str) -> None:
@@ -494,14 +675,29 @@ def save_bundle(bundle: ServingBundle, dir_path: str) -> None:
         torch.export.save(program, os.path.join(dir_path, "program_{}.pt2".format(i)))
 
 
-def load_bundle(dir_path: str, device=None) -> "ServingDetector":
+def _load_programs(dir_path: str, n_rungs: int, device: torch.device):
+    """The saved programs (their tensors on the CPU), moved to ``device``."""
+    programs = [
+        torch.export.load(os.path.join(dir_path, "program_{}.pt2".format(i)))
+        for i in range(n_rungs)
+    ]
+    target = _device_key(device)
+    if target != "cpu":
+        programs = [_to_device(p, "cpu", target) for p in programs]
+    return programs
+
+
+def load_bundle(dir_path: str, device=None, mesh=None) -> "ServingDetector":
     """Load a saved bundle into a ready :class:`ServingDetector` on
     ``device`` (default: the CUDA card), which must be of a type the
     bundle's ``platforms`` list; the saved programs (their tensors on the
-    CPU) are moved to it. No model and no config: the artifact is
-    self-contained. A bundle that is not a ``torch.export`` bundle (e.g.
-    one of the JAX package) or a device it does not list raises
-    ``ValueError``."""
+    CPU) are moved to it. A frame-sharded bundle needs ``mesh`` (a
+    ``parallel.mesh.Mesh`` or a tuple of devices) of its recorded device
+    count, and loads one copy per distinct mesh device; a mesh of another
+    size, or a ``device`` that is not mesh device 0, raises ``ValueError``.
+    No model and no config: the artifact is self-contained. A bundle that
+    is not a ``torch.export`` bundle (e.g. one of the JAX package) or a
+    device it does not list raises ``ValueError``."""
     with open(os.path.join(dir_path, "meta.json")) as f:
         meta = json.load(f)
     if meta.get("program_format") != PROGRAM_FORMAT:
@@ -517,13 +713,30 @@ def load_bundle(dir_path: str, device=None) -> "ServingDetector":
                 meta.get("format_version"), FORMAT_VERSION
             )
         )
-    device = resolve_device(device)
-    if device.type not in meta["platforms"]:
-        raise ValueError(
-            "this bundle lists platforms {}; it does not run on {}".format(
-                meta["platforms"], device.type
+    n_devices = int(meta.get("nr_devices", 1))
+    if mesh is None:
+        if n_devices > 1 or meta.get("kind") == "window_sharded":
+            raise ValueError(
+                "this bundle was exported frame-sharded over {0} devices; pass "
+                "load_bundle(..., mesh=) with a {0}-device mesh".format(n_devices))
+        devices = [resolve_device(device)]
+    else:
+        mesh = mesh_mod.as_mesh(mesh)
+        if mesh.size != n_devices:
+            raise ValueError(
+                "this bundle was exported for {} device(s); the mesh has {}".format(
+                    n_devices, mesh.size))
+        if device is not None and mesh_mod.as_mesh([device])[0] != mesh[0]:
+            raise ValueError("device {} is not mesh device 0 ({})".format(device, mesh[0]))
+        devices = list(mesh.distinct)
+    for d in devices:
+        if d.type not in meta["platforms"]:
+            raise ValueError(
+                "this bundle lists platforms {}; it does not run on {}".format(
+                    meta["platforms"], d.type
+                )
             )
-        )
+    devices = list(mesh_mod.Mesh(devices).distinct)  # a bare "cuda" names its index
     weights = []
     with np.load(os.path.join(dir_path, "weights.npz")) as z:
         for i, dt in enumerate(meta["weight_dtypes"]):
@@ -532,14 +745,12 @@ def load_bundle(dir_path: str, device=None) -> "ServingDetector":
                 weights.append(torch.from_numpy(w.view(np.int16)).view(torch.bfloat16))
             else:
                 weights.append(torch.from_numpy(w))
-    programs = [
-        torch.export.load(os.path.join(dir_path, "program_{}.pt2".format(i)))
-        for i in range(len(meta["capacity_rungs"]))
-    ]
-    target = _device_key(device)
-    if target != "cpu":  # saved programs hold their tensors on the CPU
-        programs = [_to_device(p, "cpu", target) for p in programs]
-    return ServingDetector(ServingBundle(meta=meta, weights=weights, programs=programs), device)
+    n_programs = len(meta.get("program_roles", meta["capacity_rungs"]))
+    by_device = {d: _load_programs(dir_path, n_programs, d) for d in devices}
+    bundle = ServingBundle(meta=meta, weights=weights, programs=by_device[devices[0]])
+    if meta.get("kind") == "window_sharded":
+        return WindowShardedServingDetector(bundle, mesh, by_device)
+    return ServingDetector(bundle, devices[0], mesh=mesh, programs_by_device=by_device)
 
 
 class ServingDetector:
@@ -549,15 +760,26 @@ class ServingDetector:
     batch pads a short chunk with its last frame), a saturated frame walks
     the capacity ladder (re-run alone under a dynamic batch, as the live
     detector re-dispatches it; as a padded batch under a static one), and
-    a top-rung saturation warns once and keeps the truncated result."""
+    a top-rung saturation warns once and keeps the truncated result. With
+    a mesh each call's frames are split over it, every shard's program
+    enqueued on its device before the rows are gathered on mesh device 0.
+    """
 
-    def __init__(self, bundle: ServingBundle, device=None):
+    def __init__(self, bundle: ServingBundle, device=None, mesh=None, programs_by_device=None):
         self.meta = m = bundle.meta
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._mesh = mesh if mesh is not None else mesh_mod.Mesh([resolve_device(device)])
+        self.device = self._mesh[0]
         self.programs = bundle.programs
-        self._modules = [p.module() for p in bundle.programs]
-        # on the device once; every rung's call reuses the same tensors
-        self._weights = [w.to(self.device) for w in bundle.weights]
+        by_device = programs_by_device or {self.device: bundle.programs}
+        # per mesh position: (modules, weights) of its device, on the device
+        # once; every rung's call reuses the same tensors
+        shards = {
+            d: ([p.module() for p in by_device[d]], [w.to(d) for w in bundle.weights])
+            for d in self._mesh.distinct
+        }
+        self._shards = [shards[d] for d in self._mesh]
+        self._modules, self._weights = self._shards[0]
         set_numerics(getattr(torch, m["compute_dtype"]))
         self._plan = build_plan(
             m["img_h"], m["img_w"], m["size0"], m["size0"],
@@ -579,15 +801,23 @@ class ServingDetector:
 
     def _dispatch_rung(self, rung: int, frames: List) -> torch.Tensor:
         """One exported program over ``frames`` (exactly ``batch`` of them
-        under a static batch); returns the packed rows on the device (not
-        yet synchronised)."""
-        def upload(arrays):
-            return torch.as_tensor(np.stack(arrays), device=self.device)
+        under a static batch), split over the mesh; returns the packed rows
+        on (mesh) device 0, not yet synchronised."""
+        parts = []
+        for (modules, weights), device, rows in zip(
+            self._shards, self._mesh, mesh_mod.split_rows(len(frames), self._mesh)
+        ):
+            def upload(arrays):
+                return torch.as_tensor(np.stack(arrays), device=device)
 
-        if self.meta["yuv"]:
-            y, uv = upload([f[0] for f in frames]), upload([f[1] for f in frames])
-            return self._modules[rung](y, uv, self._weights)
-        return self._modules[rung](upload(frames), self._weights)
+            with mesh_mod.on_device(device):
+                if self.meta["yuv"]:
+                    y = upload([f[0] for f in frames[rows]])
+                    uv = upload([f[1] for f in frames[rows]])
+                    parts.append(modules[rung](y, uv, weights))
+                else:
+                    parts.append(modules[rung](upload(frames[rows]), weights))
+        return parts[0] if len(parts) == 1 else mesh_mod.gather(self._mesh, parts)
 
     def _unpack(self, row: np.ndarray, rung: int) -> DetectionResult:
         m = self.meta
@@ -660,3 +890,82 @@ class ServingDetector:
         while pending:
             finish(*pending.pop(0))
         return results  # type: ignore[return-value]
+
+
+class WindowShardedServingDetector:
+    """Serve single images from a window-sharded bundle over a mesh of its
+    device count, as ``parallel/window_shard.detect_window_sharded`` detects:
+    each part runs on every shard's device (one copy of the programs and
+    weights per distinct device), the compaction between the stages on mesh
+    device 0, and a saturated result walks the bundle's capacity ladder; a
+    top-rung saturation warns once and keeps the truncated result."""
+
+    def __init__(self, bundle: ServingBundle, mesh, programs_by_device):
+        self.meta = m = bundle.meta
+        self.mesh = mesh
+        self.device = mesh[0]
+        shards = {
+            d: (dict(zip(m["program_roles"], (p.module() for p in programs_by_device[d]))),
+                [w.to(d) for w in bundle.weights])
+            for d in mesh.distinct
+        }
+        self._shards = [shards[d] for d in mesh]
+        set_numerics(getattr(torch, m["compute_dtype"]))
+        self._plan = build_plan(
+            m["img_h"], m["img_w"], m["size0"], m["size0"],
+            m["min_window_length"], m["window_scale_factor"],
+        )
+        self._table = window_table(self._plan)
+        self._coords_norm = torch.as_tensor(self._table["coords_norm"].astype(np.int64),
+                                            device=self.device)
+        self._boxes0 = mesh_mod.pad_to_multiple(
+            torch.as_tensor(self._table["boxes_float"], device=self.device), mesh.size)[0]
+        self._warned = False
+
+    def detect(self, image: np.ndarray) -> DetectionResult:
+        m, mesh = self.meta, self.mesh
+        if image.shape != (m["img_h"], m["img_w"], 3):
+            raise ValueError(
+                "image shape {} does not match the exported program ({}x{})".format(
+                    image.shape, m["img_h"], m["img_w"]))
+        copies = {d: torch.as_tensor(image, device=d)[None] for d in mesh.distinct}
+        frames = [copies[d] for d in mesh]
+        rows0 = self._boxes0
+        if m["extraction_mode"] == "gather":
+            modules, weights = self._shards[0]
+            rows0 = modules["extract"](frames[0])
+        split0 = mesh_mod.split_rows(m["n0_pad"], mesh)
+
+        def stage0(k):
+            modules, weights = self._shards[k]
+            return modules["stage0"](frames[k], rows0[split0[k]].to(mesh[k]), weights)
+
+        rungs = m["capacity_rungs"]
+        for rung, caps in enumerate(rungs):
+            def stage(i, k, boxes, bottleneck, rung=rung):
+                modules, weights = self._shards[k]
+                return modules["stage{}@{}".format(i, rung)](frames[k], boxes, bottleneck, weights)
+
+            padded = window_shard.padded_capacities(caps, mesh.size)
+            packed = window_shard.cascade_infer_window_sharded(
+                stage0, stage, self._coords_norm, self._plan.n_windows, m["n_stages"], padded,
+                m["confidence_mode"], m["thresholds"], mesh, m["compaction"],
+            )
+            result = unpack_packed_row(
+                packed.cpu().numpy()[0], padded, m["n_stages"], self._plan, self._table, False,
+                nms_mode=m["nms_mode"], nms_min_neighbors=m["nms_min_neighbors"],
+                vertically_enlarge=m["vertically_enlarge"], nms_eps=m["nms_eps"],
+            )
+            if not casc.CascadeDetector._is_saturated(result.n_survivors_per_stage, caps):
+                return result
+        if not self._warned:
+            log.log(
+                "WARNING: cascade stage saturated the bundle's top capacity rung; "
+                "excess windows were dropped. Export with more rungs (n_rungs) or "
+                "larger capacities."
+            )
+            self._warned = True
+        return result
+
+    def detect_batch(self, images: Sequence[np.ndarray]) -> List[DetectionResult]:
+        return [self.detect(image) for image in images]

@@ -20,7 +20,8 @@ Every stage trains on the CUDA card unless given ``device="cpu"``; the
 result is the port's ``CascadeModel``, which detects through
 ``CascadeDetector``. With ``append_inception`` a 299 px Inception stage
 follows the custom ones (config.py:279-287, train_cascade_app.py:203-228).
-Meshes (ROADMAP Queue A item 6) are not ported and raise.
+With a mesh (``mesh=``, else ``train_mesh_devices``) every stage trains
+data parallel over it (``train/trainer.py``).
 """
 
 from __future__ import annotations
@@ -36,9 +37,8 @@ from ..labels import IID_BACKGROUND, IID_FOREGROUND
 from ..models import cnn
 from ..models.cascade import CascadeModel
 from ..utils import log, profiling
-from ..utils.device import resolve_device
 from . import metrics
-from .trainer import ConstantPredictionException, SingleNetTrainer, refuse_unported
+from .trainer import ConstantPredictionException, SingleNetTrainer, resolve_training_mesh
 
 
 class DatasetProvider(Protocol):
@@ -177,8 +177,7 @@ class CascadeTrainer:
 
     def __init__(self, provider: DatasetProvider, seed: Optional[int] = None, mesh=None,
                  device=None):
-        refuse_unported(mesh)
-        self.device = resolve_device(device)
+        self.mesh, self.device = resolve_training_mesh(mesh, device)
         self.provider = provider
         self.seed = cf.get("seed") if seed is None else seed
         self.n_nets = cf.get("cascade_n_nets")
@@ -341,6 +340,7 @@ class CascadeTrainer:
                         nr_max=self.n_nets,
                         seed=self.seed + stage + 1000 * trial,
                         use_inception=use_inception,
+                        mesh=self.mesh,
                         device=self.device,
                     )
                     try:

@@ -13,6 +13,19 @@ metrics, as in the JAX package.
 
 Unlike the JAX steps, :func:`train_step` updates its state in place: the
 optimizer steps the parameter tensors, and ``state.step`` counts updates.
+
+The ``*_sharded`` steps are data parallel over a mesh (``parallel/mesh.py``)
+and, inside a ``torch.distributed`` group, over its processes
+(``parallel/multihost.py``): the batch is padded to a multiple of the
+shards with copies of its last row and a valid mask, each shard runs the
+forward on its device with the master weights of mesh device 0 moved there
+by a differentiable ``.to()``, and the per-row outputs are gathered before
+the loss, which is formed over the whole batch (the soft-count F-beta sums
+over the batch, and the weighted cross entropy divides by its count of
+nonzero weights: an average of per-shard losses would be another loss).
+The augmentation and the dropout mask are drawn for the batch's real rows
+as :func:`train_step` draws them, before the split, so a mesh run follows
+the single-device run of the same seed.
 A frozen Inception trunk (``trainable(..., frozen_trunk=True)``) takes no
 gradient and is not given to the optimizer, the counterpart of the JAX
 trainer's ``optax.masked`` head-only update.
@@ -179,3 +192,186 @@ def predict_step(
     bneck = bottlenecks if cfg.bottleneck_in_size is not None else None
     out = cnn.apply_stage(params, cfg, x, bneck)
     return torch.argmax(out["logits"], dim=1), out["probs"], out["bottleneck"]
+
+
+def _pad_rows(multiple: int, n: int, *tensors):
+    """Each tensor (or None) padded to a multiple of ``multiple`` rows with
+    copies of its last row, and the valid mask of the ``n`` real rows."""
+    from ..parallel.mesh import pad_to_multiple
+
+    padded = [None if t is None else pad_to_multiple(t, multiple)[0] for t in tensors]
+    n_pad = -(-n // multiple) * multiple
+    device = next(t.device for t in tensors if t is not None)
+    return padded, torch.arange(n_pad, device=device) < n
+
+
+def _shard_multiple(mesh) -> int:
+    from ..parallel import multihost
+
+    return mesh.size * multihost.process_count()
+
+
+def sharded_apply(
+    params: cnn.Params,
+    cfg: cnn.StageConfig,
+    mesh,
+    images_u8: Tensor,
+    bottlenecks: Optional[Tensor],
+    mean: Tensor,
+    std: Tensor,
+    *,
+    labels: Optional[Tensor] = None,
+    augment: Optional[tuple] = None,
+    dropout_keep: float = 1.0,
+    keep_mask: Optional[Tensor] = None,
+) -> Dict[str, Tensor]:
+    """``cnn.apply_stage`` over a batch on mesh device 0 whose rows are a
+    multiple of the mesh size times the process count: this process takes
+    its contiguous rows (all of them outside a process group), each mesh
+    shard standardizes its rows (and with ``augment`` = (config, color
+    draws, affine draws of every row) augments them) and runs the forward
+    on its device, and the outputs come back to mesh device 0 and then from
+    every process (a differentiable all-gather). Every shard is enqueued
+    before any output is gathered. Returns the forward's dict over the
+    whole batch."""
+    from ..parallel import mesh as mesh_mod
+    from ..parallel import multihost
+
+    world = multihost.process_count()
+    per_process = images_u8.shape[0] // world
+    lo = multihost.process_index() * per_process
+    replicas = mesh_mod.replicate(mesh, params)
+    outs = []
+    for k, rows in enumerate(mesh_mod.split_rows(per_process, mesh)):
+        rows = slice(lo + rows.start, lo + rows.stop)
+        device = mesh[k]
+        with mesh_mod.on_device(device):
+            x = standardize(images_u8[rows].to(device), mean.to(device), std.to(device))
+            if augment is not None:
+                acfg, color, affine = augment
+                shard_draws = augment_ops.AffineDraws(
+                    **{key: v[rows] for key, v in vars(affine).items()})
+                x = augment_ops.augment_batch(x, labels[rows].to(device), acfg, color,
+                                              shard_draws)
+            bneck = None
+            if cfg.bottleneck_in_size is not None:
+                bneck = bottlenecks[rows].to(device)
+            outs.append(cnn.apply_stage(
+                replicas[k], cfg, x, bneck, dropout_keep=dropout_keep,
+                dropout_mask=None if keep_mask is None else keep_mask[rows].to(device),
+            ))
+    out = {key: mesh_mod.gather(mesh, [o[key] for o in outs])
+           for key in ("logits", "probs", "bottleneck")}
+    if world > 1:
+        out = {key: multihost.all_gather_rows(v) for key, v in out.items()}
+    return out
+
+
+def train_step_sharded(
+    state: TrainState,
+    cfg: cnn.StageConfig,
+    loss_settings: LossSettings,
+    augment_config: Optional[augment_ops.AugmentConfig],
+    mesh,
+    images_u8: Tensor,
+    labels: Tensor,
+    bottlenecks: Optional[Tensor],
+    mean: Tensor,
+    std: Tensor,
+    host_generator: torch.Generator,
+    device_generator: torch.Generator,
+    augment_draws: Optional[tuple] = None,
+) -> Tensor:
+    """:func:`train_step` of one batch (its n rows on mesh device 0, the
+    same batch in every process) data parallel over ``mesh`` and the
+    process group. ``augment_draws``: (color, affine) draws to augment
+    with in place of ``host_generator``'s (a test hands both packages the
+    same values). Inside a group the gradients are summed over the
+    processes and divided by their count: each process computes the same
+    global loss, and the all-gather's backward sums every process's
+    gradient of it."""
+    from ..parallel import multihost
+
+    n = images_u8.shape[0]
+    multiple = _shard_multiple(mesh)
+    augment = None
+    if augment_config is not None:
+        if augment_draws is None:
+            color = augment_ops.draw_color(host_generator, augment_config.color_fast_mode)
+            affine = augment_ops.draw_affine(host_generator, n, augment_config)
+        else:
+            color, affine = augment_draws
+        affine = affine.to(mesh[0])
+        fields, _ = _pad_rows(multiple, n, *vars(affine).values())
+        augment = (augment_config, color,
+                   augment_ops.AffineDraws(**dict(zip(vars(affine), fields))))
+    keep = None
+    if loss_settings.dropout_keep < 1.0:
+        keep = cnn.dropout_keep_mask((n, cfg.bottleneck_out_size), loss_settings.dropout_keep,
+                                     device_generator, mesh[0])
+    (images_p, labels_p, bneck_p, keep_p), valid = _pad_rows(
+        multiple, n, images_u8, labels, bottlenecks, keep)
+    out = sharded_apply(
+        state.params, cfg, mesh, images_p, bneck_p, mean, std, labels=labels_p,
+        augment=augment, dropout_keep=loss_settings.dropout_keep, keep_mask=keep_p,
+    )
+    loss = losses.total_loss(
+        out,
+        labels_p,
+        state.params,
+        f_beta=loss_settings.f_beta,
+        positive_proportion=loss_settings.positive_proportion,
+        weighted=loss_settings.weighted,
+        normalize=loss_settings.normalize,
+        l2_strength=loss_settings.l2_strength,
+        l1_strength=loss_settings.l1_strength,
+        valid_mask=valid,
+    )
+    state.optimizer.zero_grad()
+    loss.backward()
+    if multihost.process_count() > 1:
+        multihost.average_gradients(optimized_leaves(state.params))
+    state.optimizer.step(state.step)
+    state.step += 1
+    return loss.detach()
+
+
+@torch.no_grad()
+def eval_step_sharded(
+    params: cnn.Params,
+    cfg: cnn.StageConfig,
+    mesh,
+    images_u8: Tensor,
+    labels: Tensor,
+    bottlenecks: Optional[Tensor],
+    mean: Tensor,
+    std: Tensor,
+    f_beta: Optional[float] = None,
+) -> Dict[str, Tensor]:
+    """:func:`eval_step` of one batch on mesh device 0, sharded as
+    :func:`train_step_sharded`; the padding rows count nowhere."""
+    (images_p, labels_p, bneck_p), valid = _pad_rows(
+        _shard_multiple(mesh), images_u8.shape[0], images_u8, labels, bottlenecks)
+    out = sharded_apply(params, cfg, mesh, images_p, bneck_p, mean, std)
+    counts = metrics.confusion_counts(out["logits"], labels_p, valid)
+    if f_beta is not None:
+        counts.update(metrics.soft_confusion_counts(out["probs"], labels_p, valid))
+    return counts
+
+
+@torch.no_grad()
+def predict_step_sharded(
+    params: cnn.Params,
+    cfg: cnn.StageConfig,
+    mesh,
+    images_u8: Tensor,
+    bottlenecks: Optional[Tensor],
+    mean: Tensor,
+    std: Tensor,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """:func:`predict_step` of one batch on mesh device 0, sharded as
+    :func:`train_step_sharded`, the padding rows dropped."""
+    n = images_u8.shape[0]
+    (images_p, bneck_p), _ = _pad_rows(_shard_multiple(mesh), n, images_u8, bottlenecks)
+    out = sharded_apply(params, cfg, mesh, images_p, bneck_p, mean, std)
+    return torch.argmax(out["logits"][:n], dim=1), out["probs"][:n], out["bottleneck"][:n]

@@ -19,6 +19,8 @@ import torch
 from rapidobjectdetectionusingcascadedcnns_tpu.ops import augment as jaug
 from rapidobjectdetectionusingcascadedcnns_torch.ops import augment as taug
 
+from torch_parity import jax_affine_draws as _jax_affine_draws
+from torch_parity import jax_color_draws as _jax_color_draws
 from torch_parity import reset_port_config  # noqa: F401 (autouse fixture)
 
 torch.set_num_threads(2)
@@ -29,40 +31,6 @@ KEYS = [jax.random.PRNGKey(s) for s in range(12)]
 _color = jax.jit(jaug.color_distort_planar, static_argnums=2)
 _affine = jax.jit(jaug.affine_transforms, static_argnums=(2, 3, 4))
 _augment = jax.jit(jaug.augment_batch, static_argnums=3)
-
-
-def _jax_color_draws(key, fast_mode):
-    """The values ``jaug.color_distort_planar(key, ...)`` draws."""
-    keys = jax.random.split(key, 5)
-    sel = int(jax.random.randint(keys[0], (), 0, 2 if fast_mode else 4))
-    u = lambda k, lo, hi: float(jax.random.uniform(k, (), minval=lo, maxval=hi))  # noqa: E731
-    return taug.ColorDraws(
-        branch=sel,
-        brightness_delta=u(keys[1], -32.0 / 255.0, 32.0 / 255.0),
-        saturation_factor=u(keys[2], 0.5, 1.5),
-        hue_delta=u(keys[3], -0.2, 0.2),
-        contrast_factor=u(keys[4], 0.5, 1.5),
-    )
-
-
-def _jax_affine_draws(key, n, acfg):
-    """The values ``jaug.affine_transforms(key, ...)`` draws."""
-    k_h, k_v, k_rot, k_rot_fg, k_pct, k_l, k_t, k_coin = jax.random.split(key, 8)
-    u = lambda k, lo=0.0, hi=1.0: torch.tensor(np.asarray(  # noqa: E731
-        jax.random.uniform(k, (n,), minval=lo, maxval=hi)))
-    base = acfg.max_rotation_angle / 180.0 * math.pi
-    fg_max = (acfg.max_foreground_rotation_angle or 0.0) / 180.0 * math.pi
-    return taug.AffineDraws(
-        hflip=u(k_h) < 0.5,
-        vflip=u(k_v) < 0.5,
-        quarter_turns=torch.tensor(np.asarray(jax.random.randint(k_rot, (n,), 0, 4))).long(),
-        angles=u(k_rot, -base, base),
-        fg_angles=u(k_rot_fg, -fg_max, fg_max),
-        crop_pct=u(k_pct, acfg.crop_min_percent, acfg.crop_max_percent),
-        crop_left=u(k_l),
-        crop_top=u(k_t),
-        crop=u(k_coin) < acfg.crop_probability,
-    )
 
 
 def _configs():

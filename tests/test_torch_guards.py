@@ -77,6 +77,10 @@ PORT_MODULES = [
     "rapidobjectdetectionusingcascadedcnns_torch.ops.windows_sched",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.windows_sched_cuda",
     "rapidobjectdetectionusingcascadedcnns_torch.ops.windows_sched_precomp_cuda",
+    "rapidobjectdetectionusingcascadedcnns_torch.parallel",
+    "rapidobjectdetectionusingcascadedcnns_torch.parallel.mesh",
+    "rapidobjectdetectionusingcascadedcnns_torch.parallel.multihost",
+    "rapidobjectdetectionusingcascadedcnns_torch.parallel.window_shard",
     "rapidobjectdetectionusingcascadedcnns_torch.run",
     "rapidobjectdetectionusingcascadedcnns_torch.serve",
     "rapidobjectdetectionusingcascadedcnns_torch.train",
@@ -108,8 +112,10 @@ def test_port_never_imports_jax():
     """Import every module of the port and the port's profiling tool of
     K2p, and run a tiny gather-mode detect, a crop-mode detect (K2's and
     K4's plain versions), a detect with the device NMS tail (K3's plain
-    version), a bundle round trip, K2p's plain version and a 3-stage
-    ``CascadeTrainer`` run with online augmentation and dropout, in a fresh
+    version), a bundle round trip, K2p's plain version, a 3-stage
+    ``CascadeTrainer`` run with online augmentation and dropout, a
+    frame-sharded and a window-sharded detect, a mesh trainer from
+    ``train_mesh_devices`` and the multi-process rehearsal, in a fresh
     interpreter: neither jax nor any module of the JAX package may be
     loaded."""
     code = (
@@ -156,6 +162,19 @@ def test_port_never_imports_jax():
         "trained = ct.CascadeTrainer(ct.SyntheticProvider(12, 20, [12, 24, 48]),\n"
         "                            device='cpu').train()\n"
         "assert trained.n_nets == 3\n"
+        "from rapidobjectdetectionusingcascadedcnns_torch.parallel import multihost, window_shard\n"
+        "from rapidobjectdetectionusingcascadedcnns_torch.train.trainer import SingleNetTrainer\n"
+        "mesh = ('cpu', 'cpu')\n"
+        "img = synthetic.make_scene(40, 48, 1, seed=0, min_face=16, max_face=24).image\n"
+        "assert len(cascade.CascadeDetector(model, mesh=mesh).detect_batch([img] * 3)) == 3\n"
+        "res = window_shard.detect_window_sharded(cascade.CascadeDetector(model), img, mesh)\n"
+        "assert res.n_windows > 0\n"
+        "cf.set('train_mesh_devices', 2)\n"
+        "ds = ct.SyntheticProvider(12, 20, [12]).dataset(12)\n"
+        "trainer = SingleNetTrainer(ds, device='cpu')\n"
+        "trainer.train()\n"
+        "assert trainer.mesh.size == 2\n"
+        "assert multihost.rehearsal(device='cpu')['eval_total'] == 32\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'rapidobjectdetectionusingcascadedcnns_tpu'))\n"
         "assert not bad, bad\n"
@@ -226,27 +245,41 @@ def _tiny_model():
     return tcascade.build_cascade_model(seed=0, device="cpu")
 
 
+def _bundle_of_two(path):
+    """A bundle exported for a 2-device CPU mesh, saved to ``path``."""
+    tserve.save_bundle(tserve.export_detector(_tiny_model(), 40, 48, batch=2, n_rungs=1,
+                                              capacities=[256, 256], mesh=("cpu", "cpu")), path)
+    return path
+
+
 @pytest.mark.parametrize(
-    "entry, what",
+    "entry, error, what",
     [
-        (lambda m: tcascade.CascadeDetector(m, mesh=object()), "item 6"),
-        (lambda m: tserve.export_detector(m, 40, 48, mesh=object()), "item 6"),
-        (lambda m: tserve.export_window_sharded(m, 40, 48, object()), "item 6"),
-        (lambda m: tct.CascadeTrainer(None, mesh=object(), device="cpu"), "item 6"),
-        (lambda m: ttrainer.SingleNetTrainer(None, mesh=object(), device="cpu"), "item 6"),
-        (lambda m: ttrainer.SingleNetTrainer(None, use_inception=True, mesh=object(),
-                                             device="cpu"),
-         "item 6"),
+        (lambda m, p: tcascade.CascadeDetector(m, mesh=object()), TypeError, "tuple of devices"),
+        (lambda m, p: tserve.export_detector(m, 40, 48, mesh=("cpu", "cuda:7")), RuntimeError,
+         "cuda"),
+        (lambda m, p: tserve.export_window_sharded(m, 40, 48, object()), TypeError,
+         "tuple of devices"),
+        (lambda m, p: tct.CascadeTrainer(None, mesh=("cuda:7",), device="cpu"), RuntimeError,
+         "cuda"),
+        (lambda m, p: ttrainer.SingleNetTrainer(None, mesh=object(), device="cpu"), TypeError,
+         "tuple of devices"),
+        (lambda m, p: ttrainer.SingleNetTrainer(None, use_inception=True, mesh=object(),
+                                                device="cpu"),
+         TypeError, "tuple of devices"),
+        (lambda m, p: tserve.load_bundle(_bundle_of_two(p), mesh=("cpu",) * 3), ValueError,
+         "the mesh has 3"),
     ],
     ids=["detector mesh", "bundle mesh", "window-sharded bundle", "cascade trainer mesh",
-         "trainer mesh", "trainer inception"],
+         "trainer mesh", "trainer inception", "bundle mesh of another size"],
 )
-def test_unported_paths_raise(entry, what):
-    """Meshes (ROADMAP Queue A item 6) are not ported: the entry points
-    that take one raise, naming the item, rather than running without it;
-    an Inception stage's trainer (item 7, ported) too."""
-    with pytest.raises(NotImplementedError, match=what):
-        entry(_tiny_model())
+def test_unported_paths_raise(entry, error, what, tmp_path):
+    """The mesh entry points refuse what they cannot run rather than
+    running without it: an object that is not a mesh, a mesh naming a
+    device this process does not have (no CUDA card here), and a
+    frame-sharded bundle loaded with a mesh of another size."""
+    with pytest.raises(error, match=what):
+        entry(_tiny_model(), str(tmp_path / "bundle"))
 
 
 def test_flagship_tools_never_import_jax():
@@ -307,8 +340,14 @@ def test_resolve_resample_impl(settings, impl):
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tcascade.CascadeDetector(_tiny_model(), mesh=object())
+    """A detector mesh that names a device this process does not have
+    raises (no shard falls back to the CPU), and so does one that is not
+    a tuple of devices."""
+    model = _tiny_model()
+    with pytest.raises(RuntimeError, match="cuda"):
+        tcascade.CascadeDetector(model, mesh=("cpu", "cuda:{}".format(torch.cuda.device_count())))
+    with pytest.raises(TypeError, match="tuple of devices"):
+        tcascade.CascadeDetector(model, mesh=2)
 
 
 def test_apps_and_cli_never_import_jax():

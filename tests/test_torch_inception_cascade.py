@@ -2,8 +2,9 @@
 package on the CPU: K1's plain version at 299 px, a 2-stage cascade (a
 12 px stage and a compact-trunk Inception stage) converted from JAX
 detecting a small frame, the Inception stage's byte-bounded chunks, a
-static serving bundle of it against the live detector, K4's refusal of a
-299 px window, and the stage's checkpoints read across the packages.
+static serving bundle of it against the live detector, the 299 px stage
+sent to K1 under ``dyn_reextract="on"`` as the JAX gate sends it, and the
+stage's checkpoints read across the packages.
 Weights come from the JAX trees through the bridge, never drawn again.
 """
 
@@ -27,6 +28,7 @@ from rapidobjectdetectionusingcascadedcnns_torch.models import cascade as tcasca
 from rapidobjectdetectionusingcascadedcnns_torch.models import inception as tinc
 from rapidobjectdetectionusingcascadedcnns_torch.ops import windows as twin
 from rapidobjectdetectionusingcascadedcnns_torch.ops import windows_cuda
+from rapidobjectdetectionusingcascadedcnns_torch.ops import windows_dyn as twin_dyn
 from rapidobjectdetectionusingcascadedcnns_torch.train import checkpoint as tckpt
 
 import torch_parity as tp
@@ -144,14 +146,28 @@ def test_static_bundle_equals_live_detector(models, tmp_path):
     assert served.n_survivors_per_stage == live.n_survivors_per_stage
 
 
-def test_k4_refuses_the_inception_stage(models):
-    """With ``dyn_reextract="on"`` the 299 px stage is not sent to K1 in
-    K4's place: K4 cannot stage such a window, and says so."""
-    _, tmodel, _, _, _ = models
-    tp.configure(**CASCADE_CFG)
+def test_dyn_reextract_sends_the_inception_stage_to_k1(models):
+    """With ``dyn_reextract="on"`` the 299 px stage is re-extracted by K1,
+    as the JAX package's gate (``dyn_supported``: a tile of windows x 299
+    columns exceeds 4,096) sends it there: on a 256x128 frame, tall and
+    wide enough for K4's lattice, the port's cascade with K4 on equals the
+    port with it off bit for bit and the JAX detector (64 boxes reach the
+    Inception stage, truncated alike by both packages)."""
+    jmodel, tmodel, _, _, _ = models
+    tp.configure(**dict(CASCADE_CFG, window_scale_factor=1.6, cascade_capacity_schedule=[64],
+                        cascade_saturation_redispatch=False))
+    frame = synthetic.make_scene(256, 128, 1, seed=3, min_face=40, max_face=80).image
+    assert not twin_dyn.dyn_supported(256, 128, 299, 299, 64)
+    ref = jcascade.CascadeDetector(jmodel).detect(frame)
+    off = tcascade.CascadeDetector(tmodel).detect(frame)
     tcf.set("dyn_reextract", "on")
-    with pytest.raises(ValueError, match="shared-memory limit"):
-        tcascade.CascadeDetector(tmodel).detect(_frame())
+    assert tcascade.resolve_resample_impl() == "pallas2dyn"
+    on = tcascade.CascadeDetector(tmodel).detect(frame)
+    assert on.n_survivors_per_stage[0] > 64 and on.reextract_overflows == [0]
+    np.testing.assert_array_equal(on.raw_window_ids, off.raw_window_ids)
+    np.testing.assert_array_equal(on.raw_confidences, off.raw_confidences)
+    np.testing.assert_array_equal(on.boxes, off.boxes)
+    tp.assert_results_close(on, ref)
 
 
 def test_compact_stage_checkpoints_cross_read(models, tmp_path):

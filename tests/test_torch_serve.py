@@ -204,10 +204,10 @@ def test_port_bundle_matches_jax_bundle(rgb_bundle, jax_bundle):
     [
         ({"resample_impl": "pallas2dyn"}, ValueError, "overflow"),
         ({"resample_impl": "xla"}, ValueError, "pallas"),
-        ({"batch": "dynamic", "mesh": object()}, NotImplementedError, "item 6"),
+        ({"batch": "dynamic", "mesh": ("cpu", "cpu")}, ValueError, "static batch"),
         ({"platforms": ("cpu", "tpu")}, ValueError, "tpu"),
         ({"platforms": ("cuda",)}, ValueError, "export device"),
-        ({"mesh": object()}, NotImplementedError, "item 6"),
+        ({"mesh": object()}, TypeError, "tuple of devices"),
     ],
 )
 def test_export_refusals(models, kwargs, error, match):
@@ -216,8 +216,13 @@ def test_export_refusals(models, kwargs, error, match):
 
 
 def test_window_sharded_export_raises(models):
-    with pytest.raises(NotImplementedError, match="item 6"):
+    """A window-sharded export refuses an object that is not a mesh and a
+    mesh naming a device this process does not have."""
+    with pytest.raises(TypeError, match="tuple of devices"):
         tserve.export_window_sharded(models[1], 100, 120, mesh=object())
+    with pytest.raises(RuntimeError, match="cuda"):
+        tserve.export_window_sharded(
+            models[1], 100, 120, mesh=("cpu", "cuda:{}".format(torch.cuda.device_count())))
 
 
 def test_load_refuses_a_jax_bundle_and_another_device(jax_bundle, rgb_bundle):

@@ -10,8 +10,9 @@ moving a program to the ``meta`` device, where a constant left behind
 would meet tensors of another device (and a dynamic program's host
 scalars, which must stay behind, would raise). Weights come from the JAX
 ``build_cascade_model`` through the bridge, never re-drawn. The export
-refusals that stay (meshes, K4, ``platforms`` without the export device or
-with a type the port lacks) are held in ``tests/test_torch_serve.py``."""
+refusals (an object that is not a mesh, a dynamic batch over a mesh, K4,
+``platforms`` without the export device or with a type the port lacks)
+are held in ``tests/test_torch_serve.py``."""
 
 import copy
 import os

@@ -3,16 +3,23 @@
 The two packages keep separate configurations: ``configure`` sets each key
 on both, and the autouse fixture ``reset_port_config`` (imported by every
 port test module) restores the port's configuration after each test, as
-tests/conftest.py does for the JAX package's.
+tests/conftest.py does for the JAX package's. ``jax_color_draws`` and
+``jax_affine_draws`` give the random values a JAX augmentation key draws,
+in the port's draw types, so both packages can augment alike.
 """
 
+import math
+
+import jax
 import numpy as np
 import pytest
+import torch
 
 from rapidobjectdetectionusingcascadedcnns_tpu import config as jcf
 from rapidobjectdetectionusingcascadedcnns_tpu.models import cascade as jcascade
 from rapidobjectdetectionusingcascadedcnns_torch import config as tcf
 from rapidobjectdetectionusingcascadedcnns_torch.models import bridge
+from rapidobjectdetectionusingcascadedcnns_torch.ops import augment as taug
 
 # tests/test_golden.py's configuration: small nets, f32, NMS keeping singletons
 GOLDEN_CFG = {
@@ -77,3 +84,37 @@ def assert_results_close(got, ref):
             np.asarray(sorted(map(tuple, ref.boxes.tolist()))),
             atol=2.0,
         )
+
+
+def jax_color_draws(key, fast_mode):
+    """The values ``jaug.color_distort_planar(key, ...)`` draws."""
+    keys = jax.random.split(key, 5)
+    sel = int(jax.random.randint(keys[0], (), 0, 2 if fast_mode else 4))
+    u = lambda k, lo, hi: float(jax.random.uniform(k, (), minval=lo, maxval=hi))  # noqa: E731
+    return taug.ColorDraws(
+        branch=sel,
+        brightness_delta=u(keys[1], -32.0 / 255.0, 32.0 / 255.0),
+        saturation_factor=u(keys[2], 0.5, 1.5),
+        hue_delta=u(keys[3], -0.2, 0.2),
+        contrast_factor=u(keys[4], 0.5, 1.5),
+    )
+
+
+def jax_affine_draws(key, n, acfg):
+    """The values ``jaug.affine_transforms(key, ...)`` draws."""
+    k_h, k_v, k_rot, k_rot_fg, k_pct, k_l, k_t, k_coin = jax.random.split(key, 8)
+    u = lambda k, lo=0.0, hi=1.0: torch.tensor(np.asarray(  # noqa: E731
+        jax.random.uniform(k, (n,), minval=lo, maxval=hi)))
+    base = acfg.max_rotation_angle / 180.0 * math.pi
+    fg_max = (acfg.max_foreground_rotation_angle or 0.0) / 180.0 * math.pi
+    return taug.AffineDraws(
+        hflip=u(k_h) < 0.5,
+        vflip=u(k_v) < 0.5,
+        quarter_turns=torch.tensor(np.asarray(jax.random.randint(k_rot, (n,), 0, 4))).long(),
+        angles=u(k_rot, -base, base),
+        fg_angles=u(k_rot_fg, -fg_max, fg_max),
+        crop_pct=u(k_pct, acfg.crop_min_percent, acfg.crop_max_percent),
+        crop_left=u(k_l),
+        crop_top=u(k_t),
+        crop=u(k_coin) < acfg.crop_probability,
+    )
