@@ -142,9 +142,8 @@ Phases (each checked; any failure exits non-zero):
      saved, loaded on the card and serving 1, 7, 16 and 23 frames, each
      equal to the live detector (K1 and K3 counted around each call; the
      stage CNNs' 16,384-row chunks straddle frames); then random weights at
-     capacities [2560, 1024] through a 3-rung dynamic bundle that reaches
-     [5061, 4096] over the 16 VGA frames (5 rungs from [640, 256] until
-     phase 30 came, to keep the script's time): every
+     the default capacities [640, 256] through a 5-rung dynamic bundle
+     that reaches [5061, 4096] over the 16 VGA frames: every
      saturated frame re-run alone, as many re-runs as the live detector's
      re-dispatches, results equal; the batch wall against the same programs
      re-running each frame padded to 16 copies (a static bundle's re-runs);
@@ -229,9 +228,13 @@ Phases (each checked; any failure exits non-zero):
      against the rehearsal alone; a frame-sharded static bundle (16 frames
      a call, programs of 8) against the live frame-sharded detector; a
      window-sharded bundle of the dense frame (crop mode, 1 rung) against
-     the live window-sharded detection; K1 and
-     K2 held against their plain versions at the shard-local shapes (one
-     ``kernels`` entry each, with the launches of the counted sharded run).
+     the live window-sharded detection; K1 and K2 counted by launch shape
+     (spies on their wrappers) in every counted run of the phase, and held
+     against their plain versions at every shape launched: one ``kernels``
+     entry per shape, with its launches summed over the runs that launched
+     it (K1 at the frame-sharded shards' 24 and 48 px, at the
+     window-sharded stage 0's 16,384-box chunks and their remainder, and at
+     each shard's share of every capacity rung the re-dispatches reached).
      What one card cannot show (NCCL across two cards, two cards' shards
      overlapping) is printed as unverified.
 
@@ -250,7 +253,7 @@ at that path's shapes; K2, K1's re-extraction and K1's stage 0 also for the
 FDDB app; K1 and K3 also for phase 22's dynamic bundle, K2 for its
 crop-mode bundle; K1 for phase 27's visualizer, once for each dispatch
 shape; K1 at 299 px for phase 29, once for each held shape; K1 and K2 at
-phase 30's shard-local shapes); the line before that is the card's name
+each of phase 30's shard-local launch shapes); the line before that is the card's name
 and power limit. Without
 CUDA the script prints a message to stderr and exits 2.
 """
@@ -2011,11 +2014,7 @@ def phase_cli(torch, model):
 
 
 DYN_FRAME_COUNTS = (1, 7, 16, 23)  # frames served by one loaded dynamic program
-# [2560, 1024] .. [5061, 4096]: the last rungs phase 4's frames climb (5 rungs
-# from [640, 256] until phase 30 came: the export took 68-129 s); the live
-# detector's retries stop at the same top rung
-LADDER_BASE = [2560, 1024]
-LADDER_RUNGS = 3
+LADDER_RUNGS = 5  # [640, 256] .. [5061, 4096]: the rungs phase 4's frames climb
 CROSS_FRAMES = 2  # the cross-device bundle's CPU leg
 SOAK_FRAMES = 128  # a short soak: 8 batches of the 16 VGA frames, each path
 TRAIN_STEPS = 4  # chained updates a stage in phase 25
@@ -2157,7 +2156,7 @@ def _crop_flagship(torch, model, caps, frames, work, kind, card):
 
 
 def _ladder_walk(torch, device, frames, kind, card):
-    """22b. Random weights at capacities ``LADDER_BASE`` through a dynamic
+    """22b. Random weights at the default capacities through a dynamic
     bundle whose ladder reaches the rung phase 4's frames end on: the
     served batch re-runs each saturated frame alone at each rung, as the
     live detector re-dispatches it, with equal results. Then the same
@@ -2168,11 +2167,11 @@ def _ladder_walk(torch, device, frames, kind, card):
 
     same = _load_tool("serve_torch_bundle_check").same_detections
     model = cascade.build_cascade_model(seed=0, device=device)
-    live_det = cascade.CascadeDetector(model, capacity_schedule=LADDER_BASE)
+    live_det = cascade.CascadeDetector(model)
     live = _quietly(live_det.detect_batch_yuv420, frames)
     t0 = time.perf_counter()
     bundle = serve.export_detector(model, IMG_H, IMG_W, batch="dynamic", yuv=True,
-                                   capacities=LADDER_BASE, n_rungs=LADDER_RUNGS)
+                                   n_rungs=LADDER_RUNGS)
     export_s = time.perf_counter() - t0
     rungs = bundle.meta["capacity_rungs"]
     assert rungs[-1] == OPEN_CAPS, rungs
@@ -2227,8 +2226,6 @@ def phase_dynamic_bundle(torch, device, flagship, frames, work, kind, card):
                                 kind, card)
         cf.restore(saved)
         cf.set("nms_on_device", True)
-        # the live detector re-dispatches as far as the bundle's ladder goes
-        cf.set("cascade_saturation_max_retries", LADDER_RUNGS - 1)
         torch.cuda.empty_cache()
         _ladder_walk(torch, device, frames, kind, card)
         cf.restore(saved)
@@ -2693,6 +2690,28 @@ def _k1_launches_by_shape():
         yield counts
     finally:
         windows_cuda.crop_and_resize_cuda = real
+
+
+@contextlib.contextmanager
+def _k2_launches_by_frames():
+    """K2's launches by frame count while the block runs, as
+    :func:`_k1_launches_by_shape` counts K1's. Yields {frames: launches}."""
+    windows_sched_cuda = _kernel_modules()[1]
+    real = windows_sched_cuda.resample_sched_cuda
+    counts = {}
+
+    def counted(planes, *args):
+        before = windows_sched_cuda.LAUNCHES
+        out = real(planes, *args)
+        key = int(planes.shape[0])
+        counts[key] = counts.get(key, 0) + windows_sched_cuda.LAUNCHES - before
+        return out
+
+    windows_sched_cuda.resample_sched_cuda = counted
+    try:
+        yield counts
+    finally:
+        windows_sched_cuda.resample_sched_cuda = real
 
 
 def _at_299(by_shape):
@@ -3205,12 +3224,25 @@ def _free_port():
     return port
 
 
+def _spied_launches(run):
+    """``run()`` with K1 counted by launch shape and K2 by frame count;
+    returns (its result, (launches of K1, K2, K4, K3), K1 by shape, K2 by
+    frames). Fails if a launch escaped the spies."""
+    _reset_launches()
+    with _k1_launches_by_shape() as k1_shapes, _k2_launches_by_frames() as k2_frames:
+        out = run()
+    launches = tuple(m.LAUNCHES for m in _kernel_modules())
+    assert sum(k1_shapes.values()) == launches[0], (k1_shapes, launches)
+    assert sum(k2_frames.values()) == launches[1], (k2_frames, launches)
+    return out, launches, dict(k1_shapes), dict(k2_frames)
+
+
 def _mesh_frames(torch, model, mesh, caps, frames, kind, card, label):
     """30a/30c. The 16 VGA YUV frames through a frame-sharded detector
     against the single-device one at ``caps``: flips as phase 18 counts
     them, the launches of the counted sharded batch, the walls, and the
-    shards' and the gather's part of one chunk. Returns (launches of K1,
-    K2, K4, K3)."""
+    shards' and the gather's part of one chunk. Returns (K1's launches by
+    shape, K2's by frames) of the counted batch."""
     from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
     from rapidobjectdetectionusingcascadedcnns_torch.parallel import mesh as mesh_mod
 
@@ -3220,9 +3252,8 @@ def _mesh_frames(torch, model, mesh, caps, frames, kind, card, label):
     _quietly(sharded.detect_batch_yuv420, frames)  # warm-up
     sharded.redispatches = 0
     torch.cuda.synchronize()
-    _reset_launches()
-    got = _quietly(sharded.detect_batch_yuv420, frames)
-    launches = tuple(m.LAUNCHES for m in _kernel_modules())
+    got, launches, k1_shapes, k2_frames = _spied_launches(
+        lambda: _quietly(sharded.detect_batch_yuv420, frames))
     pairs = [_flips(a, b) for a, b in zip(got, ref)]
     n_flips = sum(len(p[0]) for p in pairs)
     survivors = sum(len(p[2] | p[3]) for p in pairs)
@@ -3258,21 +3289,22 @@ def _mesh_frames(torch, model, mesh, caps, frames, kind, card, label):
     print("mesh ({}): frame-sharded over {} vs one device at capacities {}: flips {} of {} "
           "survivors (allowed {:.1f}), NMS boxes equal in {} of {} frames; survivors per stage "
           "sharded {} single {}; launches K1 {} K2 {} K4 {} K3 {}, re-dispatches {} in the "
-          "counted batch; 16-frame batch {:.4f} s sharded vs {:.4f} s single (median of 3); one "
-          "chunk: shards {:.3f} ms, gather {:.3f} ms ({:.2%} of the chunk); on {} [{}]".format(
+          "counted batch; K1 launches by (frames, boxes, px) {}, K2 by frames {}; 16-frame "
+          "batch {:.4f} s sharded vs {:.4f} s single (median of 3); one chunk: shards {:.3f} "
+          "ms, gather {:.3f} ms ({:.2%} of the chunk); on {} [{}]".format(
               label, mesh, caps, n_flips, survivors, BORDERLINE_FRACTION * survivors,
               same_boxes, len(got), [r.n_survivors_per_stage for r in got[:4]],
               [r.n_survivors_per_stage for r in ref[:4]], *launches, sharded.redispatches,
-              walls["sharded"], walls["single"], s_ms, g_ms, g_ms / (s_ms + g_ms), kind, card))
-    return launches
+              k1_shapes, k2_frames, walls["sharded"], walls["single"], s_ms, g_ms,
+              g_ms / (s_ms + g_ms), kind, card))
+    return k1_shapes, k2_frames
 
 
 def _mesh_window_sharded(torch, model, mesh, frame, kind, card):
     """30b. One dense 450x450 frame at scale factor 1.005 with its windows
     split over the mesh, in crop and in gather mode, against ``detect``:
-    survivor sets and NMS boxes, the launches of the counted crop-mode run
-    and the walls. Returns (K1 launches of that run, the default
-    capacities)."""
+    survivor sets and NMS boxes, the launches of the counted runs and the
+    walls. Returns {mode: K1's launches by shape in its counted run}."""
     from rapidobjectdetectionusingcascadedcnns_torch import config as cf
     from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
     from rapidobjectdetectionusingcascadedcnns_torch.parallel import window_shard
@@ -3286,21 +3318,18 @@ def _mesh_window_sharded(torch, model, mesh, frame, kind, card):
         rungs += caps is not None
     cf.set("cascade_saturation_max_retries", rungs)
     det = cascade.CascadeDetector(model)
-    k1 = None
+    k1 = {}
     for mode in ("crop", "gather"):
         cf.set("window_extraction_mode", mode)
         ref = _quietly(det.detect, frame)
         _quietly(window_shard.detect_window_sharded, det, frame, mesh)  # warm-up
         torch.cuda.synchronize()
-        _reset_launches()
         det.redispatches = 0
         t0 = time.perf_counter()
-        got = _quietly(window_shard.detect_window_sharded, det, frame, mesh)
+        got, launches, k1[mode], _ = _spied_launches(
+            lambda: _quietly(window_shard.detect_window_sharded, det, frame, mesh))
         sharded_s = time.perf_counter() - t0
-        launches = tuple(m.LAUNCHES for m in _kernel_modules())
-        if mode == "crop":
-            k1 = launches[0]
-            assert launches[1:] == (0, 0, 0), launches  # K1 only on shard-local boxes
+        assert launches[1:] == (0, 0, 0), launches  # K1 only on shard-local boxes
         flips, allowed, _, _ = _flips(got, ref)
         assert len(flips) <= allowed, (mode, len(flips), sorted(flips)[:20])
         same = sorted(map(tuple, got.boxes.tolist())) == sorted(map(tuple, ref.boxes.tolist()))
@@ -3311,12 +3340,13 @@ def _mesh_window_sharded(torch, model, mesh, frame, kind, card):
         single_s = time.perf_counter() - t0
         print("mesh: window-sharded dense frame ({} mode, {} windows) over {}: survivors per "
               "stage {} vs detect {}, flips {} (allowed {:.1f}), NMS boxes equal {}; launches "
-              "K1 {} K2 {} K4 {} K3 {}, re-dispatches {}; {:.4f} s vs detect {:.4f} s; on {} "
-              "[{}]".format(mode, got.n_windows, mesh, got.n_survivors_per_stage,
-                            ref.n_survivors_per_stage, len(flips), allowed, same, *launches,
-                            det.redispatches, sharded_s, single_s, kind, card))
+              "K1 {} K2 {} K4 {} K3 {}, re-dispatches {}; K1 launches by (frames, boxes, px) "
+              "{}; {:.4f} s (spied) vs detect {:.4f} s; on {} [{}]".format(
+                  mode, got.n_windows, mesh, got.n_survivors_per_stage,
+                  ref.n_survivors_per_stage, len(flips), allowed, same, *launches,
+                  det.redispatches, k1[mode], sharded_s, single_s, kind, card))
     cf.set("window_extraction_mode", "auto")
-    return k1, cascade.default_capacity_schedule(DENSE_WINDOWS, 3)
+    return k1
 
 
 def _mesh_training(torch, mesh, kind, card):
@@ -3415,7 +3445,8 @@ def _mesh_bundle(torch, model, mesh, caps, frames, kind, card):
     (16 frames a call, 8 a shard, 1 rung), saved, loaded with the mesh and
     serving the 16 frames equal to the live frame-sharded detector; both
     with re-dispatch off, so a frame that saturates the one rung is
-    truncated alike (rank compaction)."""
+    truncated alike (rank compaction). Returns K1's launches by shape in
+    the served call."""
     from rapidobjectdetectionusingcascadedcnns_torch import config as cf
     from rapidobjectdetectionusingcascadedcnns_torch import serve
     from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
@@ -3431,9 +3462,8 @@ def _mesh_bundle(torch, model, mesh, caps, frames, kind, card):
         t0 = time.perf_counter()
         served_det = serve.load_bundle(work, mesh=mesh)
         load_s = time.perf_counter() - t0
-        _reset_launches()
-        served = _quietly(served_det.detect_batch, frames)
-        launches = tuple(m.LAUNCHES for m in _kernel_modules())
+        served, launches, k1_shapes, _ = _spied_launches(
+            lambda: _quietly(served_det.detect_batch, frames))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     live = _quietly(cascade.CascadeDetector(model, capacity_schedule=caps,
@@ -3448,13 +3478,15 @@ def _mesh_bundle(torch, model, mesh, caps, frames, kind, card):
           "frame-sharded detector; launches K1 {} K2 {} K4 {} K3 {}; on {} [{}]".format(
               len(frames), mesh, bundle.meta["max_batch"], caps, export_s, load_s, *launches,
               kind, card))
+    return k1_shapes
 
 
 def _mesh_window_bundle(torch, model, mesh, frame, kind, card):
     """30g. A window-sharded bundle of the dense frame's cascade (crop mode,
     the default capacities, 1 rung), saved, loaded with the mesh and
     serving the frame equal to the live window-sharded detection, both
-    with re-dispatch off (rank compaction alike)."""
+    with re-dispatch off (rank compaction alike). Returns K1's launches by
+    shape in the counted served call."""
     from rapidobjectdetectionusingcascadedcnns_torch import config as cf
     from rapidobjectdetectionusingcascadedcnns_torch import serve
     from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
@@ -3473,11 +3505,10 @@ def _mesh_window_bundle(torch, model, mesh, frame, kind, card):
         load_s = time.perf_counter() - t0
         _quietly(served_det.detect, frame)  # warm-up
         torch.cuda.synchronize()
-        _reset_launches()
         t0 = time.perf_counter()
-        served = _quietly(served_det.detect, frame)
+        served, launches, k1_shapes, _ = _spied_launches(
+            lambda: _quietly(served_det.detect, frame))
         served_s = time.perf_counter() - t0
-        launches = tuple(m.LAUNCHES for m in _kernel_modules())
     finally:
         shutil.rmtree(work, ignore_errors=True)
     live = _quietly(window_shard.detect_window_sharded, cascade.CascadeDetector(model), frame,
@@ -3489,68 +3520,91 @@ def _mesh_window_bundle(torch, model, mesh, frame, kind, card):
     assert launches[0] >= 2 * mesh.size and launches[1:] == (0, 0, 0), launches
     print("mesh window-sharded bundle ({}x{} at {}, crop mode, capacities {}, 1 rung, {} "
           "programs over {}): export {:.2f} s, load {:.2f} s; served equal to the live "
-          "window-sharded detection (survivors {}) in {:.4f} s; launches K1 {} K2 {} K4 {} K3 "
+          "window-sharded detection (survivors {}) in {:.4f} s (spied); launches K1 {} K2 {} K4 {} K3 "
           "{}; on {} [{}]".format(DENSE_HW[0], DENSE_HW[1], DENSE_WSF,
                                   bundle.meta["capacity_rungs"][0], len(bundle.programs), mesh,
                                   export_s, load_s, served.n_survivors_per_stage, served_s,
                                   *launches, kind, card))
+    return k1_shapes
+
+
+def _mesh_holds(torch, device, mesh, model, frames, dense, k1_runs, k2_runs):
+    """K1 and K2 against their plain versions at every shape phase 30's
+    counted runs launched them at, on the frames those runs read: one
+    ``kernels`` entry per shape, with its launches summed over the runs
+    that launched it. ``k1_runs``: {(image, frames, boxes, px): [launches,
+    runs]}; ``k2_runs``: {frames: [launches, runs]}."""
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import pyramid, windows_sched
+
+    inputs = {"VGA": vga_k1_inputs(torch, device, cascade.CascadeDetector(model), frames),
+              "dense": dense_k1_inputs(torch, device, dense[:1])}
+    holds = []
+    for (image, n_frames, n_boxes, size), (launches, runs) in sorted(k1_runs.items()):
+        planes, coords = inputs[image]
+        what = "{} {} frame(s) x {} boxes at {} px".format(image, n_frames, n_boxes, size)
+        m = phase_k1(torch, "mesh shard, " + what, planes[:n_frames].contiguous(), coords,
+                     {size: n_boxes})
+        holds.append(("K1 crop_and_resize (flagship over {}: {}; launched by {})".format(
+            mesh, what, ", ".join(runs)), "resample.cu", "ops/windows_pallas.py:63",
+            launches, m))
+    plan = pyramid.build_plan(IMG_H, IMG_W, 12, 12, 0.075, 1.1)
+    sched = windows_sched.schedule_for_plan(plan, 12, 12)
+    for n_frames, (launches, runs) in sorted(k2_runs.items()):
+        m = _k2_hold(torch, inputs["VGA"][0][:n_frames].contiguous(), plan, sched,
+                     "mesh shard, VGA {} frame(s)".format(n_frames))
+        holds.append(("K2 scheduled stage-0 extraction (flagship over {}: VGA {} frame(s) a "
+                      "shard; launched by {})".format(mesh, n_frames, ", ".join(runs)),
+                      "sched.cu", "ops/windows_sched.py:259", launches, m))
+    return holds
 
 
 def phase_meshes(torch, device, flagship, frames, dense, kind, card):
     """30. Meshes on the card: a 2-shard mesh (cuda:0, cuda:0) with phase
     18's flagship at its operating point. Returns the ``kernels`` entries
-    of K1 and K2 at the shard-local shapes."""
+    of K1 and K2, one per shard-local shape its runs launched."""
     from rapidobjectdetectionusingcascadedcnns_torch import config as cf
-    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
-    from rapidobjectdetectionusingcascadedcnns_torch.ops import pyramid, windows_sched
     from rapidobjectdetectionusingcascadedcnns_torch.parallel import mesh as mesh_mod
 
     t_phase = time.perf_counter()
     saved = cf.snapshot()
     mesh = mesh_mod.get_mesh(devices=(device, device))
     model, caps = flagship["model"], flagship["caps"]
-    holds = []
+    k1_runs, k2_runs = {}, {}
+
+    def add(runs, by_key, run):
+        for key, n in by_key.items():
+            if n:
+                entry = runs.setdefault(key, [0, []])
+                entry[0] += n
+                entry[1].append(run)
+
+    def on(image, by_shape):
+        return {(image,) + shape: n for shape, n in by_shape.items()}
+
     try:
         _flagship_settings(cf)
         cf.set("nms_on_device", False)  # host NMS, as phase 18c
         # 30a. frame-sharded gather mode (K1 re-extracts on each shard)
-        k1, _, _, _ = _mesh_frames(torch, model, mesh, caps, frames, kind, card, "gather mode")
-        planes, coords = vga_k1_inputs(torch, device, cascade.CascadeDetector(model),
-                                       frames[:N_FRAMES // 2])
-        holds.append(("K1 crop_and_resize (flagship, frame-sharded VGA over {}, {} frames a "
-                      "shard)".format(mesh, N_FRAMES // 2), "resample.cu",
-                      "ops/windows_pallas.py:63", k1,
-                      phase_k1(torch, "frame-sharded VGA shard", planes, coords,
-                               {24: caps[0], 48: caps[1]})))
+        k1, _ = _mesh_frames(torch, model, mesh, caps, frames, kind, card, "gather mode")
+        add(k1_runs, on("VGA", k1), "the frame-sharded gather-mode batch")
         # 30c. frame-sharded crop mode: K2 per shard over the full plan's schedule
         cf.set("window_extraction_mode", "crop")
-        _, k2, _, _ = _mesh_frames(torch, model, mesh, caps, frames, kind, card, "crop mode")
+        k1, k2 = _mesh_frames(torch, model, mesh, caps, frames, kind, card, "crop mode")
         cf.set("window_extraction_mode", "auto")
-        assert k2 >= mesh.size and k2 % mesh.size == 0, k2  # one K2 launch a shard a dispatch
-        plan = pyramid.build_plan(IMG_H, IMG_W, 12, 12, 0.075, 1.1)
-        sched = windows_sched.schedule_for_plan(plan, 12, 12)
-        holds.append(("K2 scheduled stage-0 extraction (flagship, frame-sharded VGA crop mode "
-                      "over {}, {} frames a shard)".format(mesh, N_FRAMES // 2), "sched.cu",
-                      "ops/windows_sched.py:259", k2,
-                      _k2_hold(torch, planes, plan, sched, "frame-sharded VGA shard")))
-        del planes
-        torch.cuda.empty_cache()
-        # 30b. one dense frame's windows over the mesh
+        n_k2 = sum(k2.values())
+        assert n_k2 >= mesh.size and n_k2 % mesh.size == 0, k2  # one a shard a dispatch
+        add(k1_runs, on("VGA", k1), "the frame-sharded crop-mode batch")
+        add(k2_runs, k2, "the frame-sharded crop-mode batch")
+        # 30b. one dense frame's windows over the mesh, and its bundle
         cf.set("window_scale_factor", DENSE_WSF)
-        k1_w, dense_caps = _mesh_window_sharded(torch, model, mesh, dense[0], kind, card)
-        _mesh_window_bundle(torch, model, mesh, dense[0], kind, card)
+        for mode, k1 in _mesh_window_sharded(torch, model, mesh, dense[0], kind, card).items():
+            add(k1_runs, on("dense", k1), "the window-sharded {}-mode run".format(mode))
+        add(k1_runs, on("dense", _mesh_window_bundle(torch, model, mesh, dense[0], kind, card)),
+            "the window-sharded bundle")
         cf.set("window_scale_factor", 1.1)
         cf.set("window_extraction_mode", "auto")
         cf.set("cascade_saturation_redispatch", True)
-        planes, coords = dense_k1_inputs(torch, device, dense[:1])
-        chunk = int(cf.get("inference_chunk_size"))
-        holds.append(("K1 crop_and_resize (flagship, window-sharded dense frame over {}: "
-                      "stage 0's {}-box chunks and each shard's half of {})".format(
-                          mesh, chunk, dense_caps), "resample.cu", "ops/windows_pallas.py:63",
-                      k1_w,
-                      phase_k1(torch, "window-sharded dense shard", planes, coords,
-                               {12: chunk, 24: dense_caps[0] // 2, 48: dense_caps[1] // 2})))
-        del planes
         torch.cuda.empty_cache()
         # 30d-f. training, the process group, a frame-sharded bundle
         _mesh_training(torch, mesh, kind, card)
@@ -3561,7 +3615,10 @@ def phase_meshes(torch, device, flagship, frames, dense, kind, card):
         _flagship_settings(cf)
         cf.set("nms_on_device", False)
         _mesh_multihost(torch, device, kind, card)
-        _mesh_bundle(torch, model, mesh, caps, frames, kind, card)
+        add(k1_runs, on("VGA", _mesh_bundle(torch, model, mesh, caps, frames, kind, card)),
+            "the frame-sharded bundle")
+        torch.cuda.empty_cache()
+        holds = _mesh_holds(torch, device, mesh, model, frames, dense, k1_runs, k2_runs)
     finally:
         cf.restore(saved)
     print("mesh: unverified on this one-card host: NCCL collectives across two cards, and two "

@@ -55,6 +55,7 @@ from ..ops import windows_dyn, windows_sched
 from ..ops.color import yuv420_to_rgb
 from ..ops.pyramid import PyramidPlan, build_plan, window_table
 from ..ops.windows import crop_and_resize_impl, extract_windows, level_indices, to_planes_bf16
+from ..parallel import mesh as mesh_mod
 from ..utils import log
 from ..utils.device import resolve_device, set_numerics
 from . import cnn
@@ -138,6 +139,30 @@ def escalate_capacities(
     if tuple(new_caps) == tuple(capacities):
         return None
     return new_caps
+
+
+def capacity_ladder(capacities: Sequence[int], n_windows: int, steps: int):
+    """The rungs above ``capacities``: up to ``steps``
+    :func:`escalate_capacities` doublings, ending where the buffers are
+    fully open."""
+    caps = list(capacities)
+    for _ in range(steps):
+        caps = escalate_capacities(caps, n_windows)
+        if caps is None:
+            return
+        yield caps
+
+
+def climb_ladder(result, rung, ladder, rerun, saturated):
+    """The saturation re-dispatch of the live detectors and the serving
+    bundles: while ``saturated(result, rung)``, re-run at the next rung of
+    ``ladder`` (``rerun(rung)``). Returns (result, rung): the first result
+    that is not saturated, else the last rung's."""
+    for nxt in ladder:
+        if not saturated(result, rung):
+            break
+        rung, result = nxt, rerun(nxt)
+    return result, rung
 
 
 def resolve_extraction_mode(plan: PyramidPlan) -> str:
@@ -588,9 +613,9 @@ def pack_result(window_ids, conf, alive, diagnostics, *nms_tail) -> torch.Tensor
 class CascadeDetector:
     """Host orchestration around :func:`cascade_core`.
 
-    One instance per :class:`CascadeModel`; it runs on the model's device,
-    or with ``mesh`` (``parallel.mesh.Mesh``, or a tuple of devices) on
-    every mesh device: frame chunks are sharded over the mesh, the weights
+    One instance per :class:`CascadeModel`; it runs over a mesh
+    (``parallel.mesh.Mesh``, or a tuple of devices; by default the model's
+    device alone): frame chunks are sharded over the mesh, the weights
     replicated once per distinct device, and the results gathered on mesh
     device 0 (JAX ``CascadeDetector(mesh=)``). Pyramid plans and their
     device tables are cached per image size.
@@ -600,13 +625,8 @@ class CascadeDetector:
         if model.n_nets < 2:
             raise ValueError("a cascade must consist of at least two nets")
         self.model = model
-        self.mesh = None
-        self.device = model.device
-        if mesh is not None:
-            from ..parallel import mesh as mesh_mod
-
-            self.mesh = mesh_mod.as_mesh(mesh)
-            self.device = self.mesh[0]
+        self.mesh = mesh_mod.Mesh([model.device]) if mesh is None else mesh_mod.as_mesh(mesh)
+        self.device = self.mesh[0]
         self.redispatches = 0  # saturation re-runs, for diagnostics
         self._saturation_warned = False
         self._plan_cache: Dict[tuple, list] = {}
@@ -624,13 +644,11 @@ class CascadeDetector:
             cnn.cast_params(p, c) for p, c in zip(model.stage_params, model.stage_configs)
         )
         # per shard: (params, stats) on its device (one copy per device)
-        self._shards = [(self._params_device, self._stats_device)]
-        if self.mesh is not None:
-            self._shards = list(zip(
-                mesh_mod.replicate(self.mesh, self._params_device),
-                mesh_mod.replicate(self.mesh, self._stats_device),
-            ))
-            self._params_device = self._shards[0][0]
+        self._shards = list(zip(
+            mesh_mod.replicate(self.mesh, self._params_device),
+            mesh_mod.replicate(self.mesh, self._stats_device),
+        ))
+        self._params_device = self._shards[0][0]
 
     def _plan_and_table(self, img_h: int, img_w: int) -> list:
         """[plan, window table, coords_norm (N, 4) int64 and boxes_float
@@ -727,14 +745,10 @@ class CascadeDetector:
         packed (B, row) tensor on the device (not yet synchronised).
         ``resample`` overrides the configured kernels (the K1 re-run after
         a K4 overflow). With ``nms_on_device`` the program ends in the
-        groupRectangles tail. With a mesh the chunk is padded to a multiple
-        of the mesh size with its last frame and split; every shard is
-        enqueued before the rows are gathered on mesh device 0, and the
-        padding rows are dropped."""
-        if self.mesh is None:
-            return self._run_shard(frames, yuv, caps, entry, resample, 0)
-        from ..parallel import mesh as mesh_mod
-
+        groupRectangles tail. The chunk is padded to a multiple of the mesh
+        size with its last frame and split; every shard is enqueued before
+        the rows are gathered on mesh device 0, and the padding rows are
+        dropped."""
         n = len(frames)
         padded = list(frames) + [frames[-1]] * (-n % self.mesh.size)
         parts = [
@@ -746,15 +760,13 @@ class CascadeDetector:
     def _run_shard(self, frames: Sequence, yuv: bool, caps, entry, resample: Optional[str],
                    shard: int):
         """:meth:`_run_chunk` of one shard's frames on its device."""
-        from ..parallel.mesh import on_device
-
-        device = self.device if self.mesh is None else self.mesh[shard]
+        device = self.mesh[shard]
         params, stats = self._shards[shard]
         plan = entry[0]
         mode = resolve_extraction_mode(plan)
         coords_norm, boxes_float, indices = self._tables_on(entry, device, mode)
         n_stages = self.model.n_nets
-        with on_device(device):
+        with mesh_mod.on_device(device):
             if yuv:
                 y = torch.as_tensor(np.stack([f[0] for f in frames]), device=device)
                 uv = torch.as_tensor(np.stack([f[1] for f in frames]), device=device)
@@ -893,21 +905,20 @@ class CascadeDetector:
                 self._saturation_warned = True
             return result
 
-        caps = list(capacities)
-        for _ in range(int(cf.get("cascade_saturation_max_retries"))):
-            new_caps = escalate_capacities(caps, plan.n_windows)
-            if new_caps is None:
-                break
-            caps = new_caps
+        def escalate(caps):
             log.log(
                 "WARNING: cascade stage saturated its survivor capacity; "
                 "re-dispatching with capacities {}".format(caps)
             )
-            result = rerun(caps)
-            if not self._is_saturated(
-                result.n_survivors_per_stage, caps, result.reextract_overflows
-            ):
-                return result
+            return rerun(caps)
+
+        ladder = capacity_ladder(capacities, plan.n_windows,
+                                 int(cf.get("cascade_saturation_max_retries")))
+        result, caps = climb_ladder(
+            result, list(capacities), ladder, escalate,
+            lambda res, c: self._is_saturated(res.n_survivors_per_stage, c,
+                                              res.reextract_overflows),
+        )
         if overflowed(result):
             log.log(
                 "WARNING: dynamic re-extraction big class overflowed; "

@@ -188,7 +188,10 @@ def shard_batch(mesh: Mesh, *arrays):
 
 def gather(mesh: Mesh, parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """The per-shard results concatenated on mesh device 0 (differentiable:
-    ``.to()`` carries gradients back to each shard's device)."""
+    ``.to()`` carries gradients back to each shard's device); a mesh of
+    one device gives its part itself."""
+    if len(parts) == 1:
+        return parts[0].to(mesh[0])
     return torch.cat([p.to(mesh[0]) for p in parts])
 
 

@@ -208,13 +208,13 @@ def rehearsal(global_batch: int = 32, seed: int = 0, initial_params=None,
     mean = torch.full((size, size, 3), 127.5, device=device)
     std = torch.full((size, size, 3), 64.0, device=device)
     generator = torch.Generator(device=device).manual_seed(seed)
-    loss = train_step.train_step_sharded(
-        state, stage_cfg, loss_settings, augment_ops.AugmentConfig.from_config(), mesh,
+    loss = train_step.train_step(
+        state, stage_cfg, loss_settings, augment_ops.AugmentConfig.from_config(),
         images_g, labels_g, bneck_g, mean, std, torch.Generator().manual_seed(seed), generator,
-        augment_draws,
+        mesh=mesh, augment_draws=augment_draws,
     )
-    counts = train_step.eval_step_sharded(
-        state.params, stage_cfg, mesh, images_g, labels_g, bneck_g, mean, std, f_beta=8.0
+    counts = train_step.eval_step(
+        state.params, stage_cfg, images_g, labels_g, bneck_g, mean, std, f_beta=8.0, mesh=mesh
     )
     # the updated weights, which show the gradients' scale over processes
     update_sq = sum(float(((t.detach() - t0) ** 2).double().sum()) for t, t0 in zip(

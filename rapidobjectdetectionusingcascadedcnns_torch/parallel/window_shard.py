@@ -222,18 +222,18 @@ def detect_window_sharded(detector: "casc.CascadeDetector", image: np.ndarray,
             "ranking (cascade_saturation_redispatch is off)."
         )
         return result
-    caps = capacities
-    for _ in range(int(cf.get("cascade_saturation_max_retries"))):
-        new_caps = casc.escalate_capacities(caps, plan.n_windows)
-        if new_caps is None:
-            return result  # the buffers are fully open: nothing was dropped
-        caps = new_caps
+
+    def escalate(caps):
         log.log(
             "WARNING: window-sharded cascade saturated; re-dispatching with "
             "capacities {}".format(caps)
         )
         detector.redispatches += 1
-        result = run(caps)
-        if not detector._is_saturated(result.n_survivors_per_stage, caps):
-            return result
-    return result
+        return run(caps)
+
+    ladder = casc.capacity_ladder(capacities, plan.n_windows,
+                                  int(cf.get("cascade_saturation_max_retries")))
+    return casc.climb_ladder(
+        result, capacities, ladder, escalate,
+        lambda res, caps: detector._is_saturated(res.n_survivors_per_stage, caps),
+    )[0]

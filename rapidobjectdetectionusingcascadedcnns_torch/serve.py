@@ -314,17 +314,12 @@ def _plan_and_rungs(model: CascadeModel, img_h: int, img_w: int,
                       float(cf.get("window_scale_factor")))
     if plan.n_windows < 1:
         raise ValueError("Could not extract any windows at this image size")
-    rungs = [list(
+    base = list(
         capacities
         or cf.get("cascade_capacity_schedule")
         or casc.default_capacity_schedule(plan.n_windows, model.n_nets)
-    )]
-    while len(rungs) < max(1, n_rungs):
-        nxt = casc.escalate_capacities(rungs[-1], plan.n_windows)
-        if nxt is None:
-            break
-        rungs.append(nxt)
-    return plan, rungs
+    )
+    return plan, [base] + list(casc.capacity_ladder(base, plan.n_windows, n_rungs - 1))
 
 
 def export_detector(
@@ -767,18 +762,17 @@ class ServingDetector:
 
     def __init__(self, bundle: ServingBundle, device=None, mesh=None, programs_by_device=None):
         self.meta = m = bundle.meta
-        self.mesh = mesh
-        self._mesh = mesh if mesh is not None else mesh_mod.Mesh([resolve_device(device)])
-        self.device = self._mesh[0]
+        self.mesh = mesh if mesh is not None else mesh_mod.Mesh([resolve_device(device)])
+        self.device = self.mesh[0]
         self.programs = bundle.programs
         by_device = programs_by_device or {self.device: bundle.programs}
         # per mesh position: (modules, weights) of its device, on the device
         # once; every rung's call reuses the same tensors
         shards = {
             d: ([p.module() for p in by_device[d]], [w.to(d) for w in bundle.weights])
-            for d in self._mesh.distinct
+            for d in self.mesh.distinct
         }
-        self._shards = [shards[d] for d in self._mesh]
+        self._shards = [shards[d] for d in self.mesh]
         self._modules, self._weights = self._shards[0]
         set_numerics(getattr(torch, m["compute_dtype"]))
         self._plan = build_plan(
@@ -805,7 +799,7 @@ class ServingDetector:
         on (mesh) device 0, not yet synchronised."""
         parts = []
         for (modules, weights), device, rows in zip(
-            self._shards, self._mesh, mesh_mod.split_rows(len(frames), self._mesh)
+            self._shards, self.mesh, mesh_mod.split_rows(len(frames), self.mesh)
         ):
             def upload(arrays):
                 return torch.as_tensor(np.stack(arrays), device=device)
@@ -817,7 +811,7 @@ class ServingDetector:
                     parts.append(modules[rung](y, uv, weights))
                 else:
                     parts.append(modules[rung](upload(frames[rows]), weights))
-        return parts[0] if len(parts) == 1 else mesh_mod.gather(self._mesh, parts)
+        return mesh_mod.gather(self.mesh, parts)
 
     def _unpack(self, row: np.ndarray, rung: int) -> DetectionResult:
         m = self.meta
@@ -865,11 +859,13 @@ class ServingDetector:
         def finish(chunk_idx, packed_dev):
             packed = packed_dev.cpu().numpy()
             for j, i in enumerate(chunk_idx):
-                result, rung = self._unpack(packed[j], 0), 0
-                while self._saturated(result, rung) and rung + 1 < len(self._modules):
-                    rung += 1
-                    re_packed = self._dispatch_rung(rung, [frames[i]] * rerun_n).cpu().numpy()
-                    result = self._unpack(re_packed[0], rung)
+                def rerun(rung, frame=frames[i]):
+                    re_packed = self._dispatch_rung(rung, [frame] * rerun_n).cpu().numpy()
+                    return self._unpack(re_packed[0], rung)
+
+                result, rung = casc.climb_ladder(self._unpack(packed[j], 0), 0,
+                                                 range(1, len(self._modules)), rerun,
+                                                 self._saturated)
                 if self._saturated(result, rung) and not self._warned:
                     log.log(
                         "WARNING: cascade stage saturated the bundle's top "
@@ -941,23 +937,29 @@ class WindowShardedServingDetector:
             return modules["stage0"](frames[k], rows0[split0[k]].to(mesh[k]), weights)
 
         rungs = m["capacity_rungs"]
-        for rung, caps in enumerate(rungs):
-            def stage(i, k, boxes, bottleneck, rung=rung):
+
+        def run(rung):
+            def stage(i, k, boxes, bottleneck):
                 modules, weights = self._shards[k]
                 return modules["stage{}@{}".format(i, rung)](frames[k], boxes, bottleneck, weights)
 
-            padded = window_shard.padded_capacities(caps, mesh.size)
+            padded = window_shard.padded_capacities(rungs[rung], mesh.size)
             packed = window_shard.cascade_infer_window_sharded(
                 stage0, stage, self._coords_norm, self._plan.n_windows, m["n_stages"], padded,
                 m["confidence_mode"], m["thresholds"], mesh, m["compaction"],
             )
-            result = unpack_packed_row(
+            return unpack_packed_row(
                 packed.cpu().numpy()[0], padded, m["n_stages"], self._plan, self._table, False,
                 nms_mode=m["nms_mode"], nms_min_neighbors=m["nms_min_neighbors"],
                 vertically_enlarge=m["vertically_enlarge"], nms_eps=m["nms_eps"],
             )
-            if not casc.CascadeDetector._is_saturated(result.n_survivors_per_stage, caps):
-                return result
+
+        def saturated(result, rung):
+            return casc.CascadeDetector._is_saturated(result.n_survivors_per_stage, rungs[rung])
+
+        result, rung = casc.climb_ladder(run(0), 0, range(1, len(rungs)), run, saturated)
+        if not saturated(result, rung):
+            return result
         if not self._warned:
             log.log(
                 "WARNING: cascade stage saturated the bundle's top capacity rung; "

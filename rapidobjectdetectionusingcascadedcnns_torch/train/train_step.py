@@ -14,18 +14,19 @@ metrics, as in the JAX package.
 Unlike the JAX steps, :func:`train_step` updates its state in place: the
 optimizer steps the parameter tensors, and ``state.step`` counts updates.
 
-The ``*_sharded`` steps are data parallel over a mesh (``parallel/mesh.py``)
-and, inside a ``torch.distributed`` group, over its processes
-(``parallel/multihost.py``): the batch is padded to a multiple of the
-shards with copies of its last row and a valid mask, each shard runs the
-forward on its device with the master weights of mesh device 0 moved there
-by a differentiable ``.to()``, and the per-row outputs are gathered before
-the loss, which is formed over the whole batch (the soft-count F-beta sums
-over the batch, and the weighted cross entropy divides by its count of
-nonzero weights: an average of per-shard losses would be another loss).
-The augmentation and the dropout mask are drawn for the batch's real rows
-as :func:`train_step` draws them, before the split, so a mesh run follows
-the single-device run of the same seed.
+Every step is data parallel over a mesh (``parallel/mesh.py``; by default
+the one device the batch lies on) and, inside a ``torch.distributed``
+group, over its processes (``parallel/multihost.py``): the batch is padded
+to a multiple of the shards with copies of its last row and a valid mask,
+each shard runs the forward on its device with the master weights of mesh
+device 0 moved there by a differentiable ``.to()``, and the per-row outputs
+are gathered before the loss, which is formed over the whole batch (the
+soft-count F-beta sums over the batch, and the weighted cross entropy
+divides by its count of nonzero weights: an average of per-shard losses
+would be another loss). The augmentation and the dropout mask are drawn
+for the batch's real rows before the split, so a mesh run follows the
+single-device run of the same seed; on one device with no padding the
+step is the plain forward, loss and update.
 A frozen Inception trunk (``trainable(..., frozen_trunk=True)``) takes no
 gradient and is not given to the optimizer, the counterpart of the JAX
 trainer's ``optax.masked`` head-only update.
@@ -40,6 +41,7 @@ import torch
 
 from ..models import cnn
 from ..ops import augment as augment_ops
+from ..parallel import mesh as mesh_mod
 from . import losses, metrics
 from .optimizer import ScheduledOptimizer
 
@@ -107,108 +109,31 @@ def standardize(images_u8: Tensor, mean: Tensor, std: Tensor) -> Tensor:
     return (images_u8.float() - mean) / std
 
 
-def train_step(
-    state: TrainState,
-    cfg: cnn.StageConfig,
-    loss_settings: LossSettings,
-    augment_config: Optional[augment_ops.AugmentConfig],
-    images_u8: Tensor,
-    labels: Tensor,
-    bottlenecks: Optional[Tensor],
-    mean: Tensor,
-    std: Tensor,
-    host_generator: torch.Generator,
-    device_generator: torch.Generator,
-    valid_mask: Optional[Tensor] = None,
-) -> Tensor:
-    """One update. Augmentation draws come from ``host_generator`` (a CPU
-    generator), the dropout mask from ``device_generator`` (on the batch's
-    device). Returns the loss, a 0-d tensor (no host sync)."""
-    x = standardize(images_u8, mean, std)
-    if augment_config is not None:
-        x = augment_ops.draw_and_augment(host_generator, x, labels, augment_config)
-    out = cnn.apply_stage(
-        state.params,
-        cfg,
-        x,
-        bottlenecks if cfg.bottleneck_in_size is not None else None,
-        dropout_keep=loss_settings.dropout_keep,
-        generator=device_generator,
-    )
-    loss = losses.total_loss(
-        out,
-        labels,
-        state.params,
-        f_beta=loss_settings.f_beta,
-        positive_proportion=loss_settings.positive_proportion,
-        weighted=loss_settings.weighted,
-        normalize=loss_settings.normalize,
-        l2_strength=loss_settings.l2_strength,
-        l1_strength=loss_settings.l1_strength,
-        valid_mask=valid_mask,
-    )
-    state.optimizer.zero_grad()
-    loss.backward()
-    state.optimizer.step(state.step)
-    state.step += 1
-    return loss.detach()
-
-
-@torch.no_grad()
-def eval_step(
-    params: cnn.Params,
-    cfg: cnn.StageConfig,
-    images_u8: Tensor,
-    labels: Tensor,
-    bottlenecks: Optional[Tensor],
-    mean: Tensor,
-    std: Tensor,
-    valid_mask: Optional[Tensor] = None,
-    f_beta: Optional[float] = None,
-) -> Dict[str, Tensor]:
-    """Confusion-count sums of one batch (soft counts too with ``f_beta``)."""
-    x = standardize(images_u8, mean, std)
-    bneck = bottlenecks if cfg.bottleneck_in_size is not None else None
-    out = cnn.apply_stage(params, cfg, x, bneck)
-    counts = metrics.confusion_counts(out["logits"], labels, valid_mask)
-    if f_beta is not None:
-        counts.update(metrics.soft_confusion_counts(out["probs"], labels, valid_mask))
-    return counts
-
-
-@torch.no_grad()
-def predict_step(
-    params: cnn.Params,
-    cfg: cnn.StageConfig,
-    images_u8: Tensor,
-    bottlenecks: Optional[Tensor],
-    mean: Tensor,
-    std: Tensor,
-) -> Tuple[Tensor, Tensor, Tensor]:
-    """(argmax labels, softmax probs, bottleneck) of one batch; the
-    bottleneck is the post-concat fc1 tensor the next stage reads
-    (net.py:572-652)."""
-    x = standardize(images_u8, mean, std)
-    bneck = bottlenecks if cfg.bottleneck_in_size is not None else None
-    out = cnn.apply_stage(params, cfg, x, bneck)
-    return torch.argmax(out["logits"], dim=1), out["probs"], out["bottleneck"]
-
-
-def _pad_rows(multiple: int, n: int, *tensors):
-    """Each tensor (or None) padded to a multiple of ``multiple`` rows with
-    copies of its last row, and the valid mask of the ``n`` real rows."""
-    from ..parallel.mesh import pad_to_multiple
-
-    padded = [None if t is None else pad_to_multiple(t, multiple)[0] for t in tensors]
-    n_pad = -(-n // multiple) * multiple
-    device = next(t.device for t in tensors if t is not None)
-    return padded, torch.arange(n_pad, device=device) < n
+def _mesh_of(mesh, batch: Tensor) -> "mesh_mod.Mesh":
+    """``mesh``, or the one device ``batch`` lies on."""
+    return mesh_mod.Mesh([batch.device]) if mesh is None else mesh
 
 
 def _shard_multiple(mesh) -> int:
     from ..parallel import multihost
 
     return mesh.size * multihost.process_count()
+
+
+def _pad_rows(multiple: int, n: int, valid_mask: Optional[Tensor], *tensors):
+    """Each tensor (or None) padded to a multiple of ``multiple`` rows with
+    copies of its last row, and the valid mask of the padded batch: the
+    ``n`` real rows (those of ``valid_mask`` among them); None where every
+    row is real and valid."""
+    padded = [None if t is None else mesh_mod.pad_to_multiple(t, multiple)[0] for t in tensors]
+    n_pad = -(-n // multiple) * multiple
+    if n_pad == n:
+        return padded, valid_mask
+    device = next(t.device for t in tensors if t is not None)
+    valid = torch.arange(n_pad, device=device) < n
+    if valid_mask is not None:
+        valid = valid & mesh_mod.pad_to_multiple(valid_mask, multiple)[0]
+    return padded, valid
 
 
 def sharded_apply(
@@ -234,7 +159,6 @@ def sharded_apply(
     every process (a differentiable all-gather). Every shard is enqueued
     before any output is gathered. Returns the forward's dict over the
     whole batch."""
-    from ..parallel import mesh as mesh_mod
     from ..parallel import multihost
 
     world = multihost.process_count()
@@ -267,12 +191,11 @@ def sharded_apply(
     return out
 
 
-def train_step_sharded(
+def train_step(
     state: TrainState,
     cfg: cnn.StageConfig,
     loss_settings: LossSettings,
     augment_config: Optional[augment_ops.AugmentConfig],
-    mesh,
     images_u8: Tensor,
     labels: Tensor,
     bottlenecks: Optional[Tensor],
@@ -280,18 +203,23 @@ def train_step_sharded(
     std: Tensor,
     host_generator: torch.Generator,
     device_generator: torch.Generator,
+    valid_mask: Optional[Tensor] = None,
+    mesh=None,
     augment_draws: Optional[tuple] = None,
 ) -> Tensor:
-    """:func:`train_step` of one batch (its n rows on mesh device 0, the
-    same batch in every process) data parallel over ``mesh`` and the
-    process group. ``augment_draws``: (color, affine) draws to augment
-    with in place of ``host_generator``'s (a test hands both packages the
-    same values). Inside a group the gradients are summed over the
-    processes and divided by their count: each process computes the same
-    global loss, and the all-gather's backward sums every process's
-    gradient of it."""
+    """One update of one batch (its n rows on mesh device 0, the same batch
+    in every process), data parallel over ``mesh`` (default: the batch's
+    device) and the process group. Augmentation draws come from
+    ``host_generator`` (a CPU generator), or are given as ``augment_draws``
+    ((color, affine); a test hands both packages the same values); the
+    dropout mask comes from ``device_generator`` (on mesh device 0).
+    Inside a group the gradients are summed over the processes and divided
+    by their count: each process computes the same global loss, and the
+    all-gather's backward sums every process's gradient of it. Returns the
+    loss, a 0-d tensor (no host sync)."""
     from ..parallel import multihost
 
+    mesh = _mesh_of(mesh, images_u8)
     n = images_u8.shape[0]
     multiple = _shard_multiple(mesh)
     augment = None
@@ -302,7 +230,7 @@ def train_step_sharded(
         else:
             color, affine = augment_draws
         affine = affine.to(mesh[0])
-        fields, _ = _pad_rows(multiple, n, *vars(affine).values())
+        fields, _ = _pad_rows(multiple, n, None, *vars(affine).values())
         augment = (augment_config, color,
                    augment_ops.AffineDraws(**dict(zip(vars(affine), fields))))
     keep = None
@@ -310,7 +238,7 @@ def train_step_sharded(
         keep = cnn.dropout_keep_mask((n, cfg.bottleneck_out_size), loss_settings.dropout_keep,
                                      device_generator, mesh[0])
     (images_p, labels_p, bneck_p, keep_p), valid = _pad_rows(
-        multiple, n, images_u8, labels, bottlenecks, keep)
+        multiple, n, valid_mask, images_u8, labels, bottlenecks, keep)
     out = sharded_apply(
         state.params, cfg, mesh, images_p, bneck_p, mean, std, labels=labels_p,
         augment=augment, dropout_keep=loss_settings.dropout_keep, keep_mask=keep_p,
@@ -337,21 +265,23 @@ def train_step_sharded(
 
 
 @torch.no_grad()
-def eval_step_sharded(
+def eval_step(
     params: cnn.Params,
     cfg: cnn.StageConfig,
-    mesh,
     images_u8: Tensor,
     labels: Tensor,
     bottlenecks: Optional[Tensor],
     mean: Tensor,
     std: Tensor,
+    valid_mask: Optional[Tensor] = None,
     f_beta: Optional[float] = None,
+    mesh=None,
 ) -> Dict[str, Tensor]:
-    """:func:`eval_step` of one batch on mesh device 0, sharded as
-    :func:`train_step_sharded`; the padding rows count nowhere."""
+    """Confusion-count sums of one batch (soft counts too with ``f_beta``),
+    sharded as :func:`train_step`; the padding rows count nowhere."""
+    mesh = _mesh_of(mesh, images_u8)
     (images_p, labels_p, bneck_p), valid = _pad_rows(
-        _shard_multiple(mesh), images_u8.shape[0], images_u8, labels, bottlenecks)
+        _shard_multiple(mesh), images_u8.shape[0], valid_mask, images_u8, labels, bottlenecks)
     out = sharded_apply(params, cfg, mesh, images_p, bneck_p, mean, std)
     counts = metrics.confusion_counts(out["logits"], labels_p, valid)
     if f_beta is not None:
@@ -360,18 +290,20 @@ def eval_step_sharded(
 
 
 @torch.no_grad()
-def predict_step_sharded(
+def predict_step(
     params: cnn.Params,
     cfg: cnn.StageConfig,
-    mesh,
     images_u8: Tensor,
     bottlenecks: Optional[Tensor],
     mean: Tensor,
     std: Tensor,
+    mesh=None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
-    """:func:`predict_step` of one batch on mesh device 0, sharded as
-    :func:`train_step_sharded`, the padding rows dropped."""
+    """(argmax labels, softmax probs, bottleneck) of one batch, sharded as
+    :func:`train_step`, the padding rows dropped; the bottleneck is the
+    post-concat fc1 tensor the next stage reads (net.py:572-652)."""
+    mesh = _mesh_of(mesh, images_u8)
     n = images_u8.shape[0]
-    (images_p, bneck_p), _ = _pad_rows(_shard_multiple(mesh), n, images_u8, bottlenecks)
+    (images_p, bneck_p), _ = _pad_rows(_shard_multiple(mesh), n, None, images_u8, bottlenecks)
     out = sharded_apply(params, cfg, mesh, images_p, bneck_p, mean, std)
     return torch.argmax(out["logits"][:n], dim=1), out["probs"][:n], out["bottleneck"][:n]

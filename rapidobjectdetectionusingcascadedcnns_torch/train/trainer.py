@@ -23,14 +23,14 @@ orchestration, with the batch stream of the JAX package's seeded iterators
 the card by a prefetch thread (``data/prefetch.PrefetchIterator``, depth 2). It runs on the
 CUDA card unless given ``device="cpu"``.
 
-With a mesh (``mesh=``, else ``train_mesh_devices`` through
-``parallel/mesh.mesh_from_config``) the steps are data parallel
-(``train_step.*_sharded``): every batch is padded to a multiple of the mesh
-size with a valid mask and split over the mesh, the master weights stay on
-mesh device 0, and the loss is formed over the whole batch; inside a
-``torch.distributed`` group the batch is split over the processes too
-(``parallel/multihost.py``). The same seed gives the single-device run's
-draws, so a mesh run tracks it within float rounding.
+The steps run over a mesh (``mesh=``, else ``train_mesh_devices`` through
+``parallel/mesh.mesh_from_config``, else the one device): every batch is
+padded to a multiple of the mesh size with a valid mask and split over the
+mesh, the master weights stay on mesh device 0, and the loss is formed
+over the whole batch; inside a ``torch.distributed`` group the batch is
+split over the processes too (``parallel/multihost.py``). The same seed
+gives the single-device run's draws, so a mesh run tracks it within float
+rounding.
 
 An Inception stage (``use_inception``) trains its compact trunk end to end,
 or, with ``inception_weights_path`` set, keeps the loaded trunk frozen:
@@ -67,13 +67,11 @@ class ConstantPredictionException(Exception):
 
 
 def resolve_training_mesh(mesh, device):
-    """(mesh or None, device) of a trainer: ``mesh`` (a ``Mesh`` or a tuple
-    of devices), else the ``train_mesh_devices`` mesh on ``device``'s type;
-    with a mesh the device is mesh device 0, and a ``device`` naming
-    another raises. Inside a process group of several processes a trainer
-    without a mesh runs sharded over its one device."""
+    """(mesh, device) of a trainer: ``mesh`` (a ``Mesh`` or a tuple of
+    devices), else the ``train_mesh_devices`` mesh on ``device``'s type,
+    else the mesh of ``device`` alone; the device is mesh device 0, and a
+    ``device`` naming another raises."""
     from ..parallel import mesh as mesh_mod
-    from ..parallel import multihost
 
     if mesh is None:
         mesh = mesh_mod.mesh_from_config(device)
@@ -81,9 +79,7 @@ def resolve_training_mesh(mesh, device):
         mesh = mesh_mod.as_mesh(mesh)
     if mesh is None:
         device = resolve_device(device)
-        if multihost.process_count() > 1:
-            mesh = mesh_mod.Mesh([device])
-        return mesh, device
+        return mesh_mod.Mesh([device]), device
     if device is not None and mesh_mod.as_mesh([device])[0] != mesh[0]:
         raise ValueError("device {} is not mesh device 0 ({})".format(device, mesh[0]))
     return mesh, mesh[0]
@@ -106,7 +102,7 @@ class SingleNetTrainer:
         device=None,
     ):
         self.mesh, self.device = resolve_training_mesh(mesh, device)
-        if self.mesh is not None:
+        if self.mesh.size > 1:
             log.log("data-parallel training over {} (batch axis sharded, weights on {})".format(
                 self.mesh, self.device))
         self.ds = dataset
@@ -277,16 +273,10 @@ class SingleNetTrainer:
         totals: Dict[str, float] = {}
         while it.in_first_epoch:
             images, labels, bneck = self._place_batch(it.next_batch)
-            if self.mesh is None:
-                counts = train_step.eval_step(
-                    self.state.params, self.stage_config, images, labels, bneck,
-                    self._mean, self._std, None, self.f_beta,
-                )
-            else:
-                counts = train_step.eval_step_sharded(
-                    self.state.params, self.stage_config, self.mesh, images, labels, bneck,
-                    self._mean, self._std, self.f_beta,
-                )
+            counts = train_step.eval_step(
+                self.state.params, self.stage_config, images, labels, bneck,
+                self._mean, self._std, None, self.f_beta, mesh=self.mesh,
+            )
             for k, v in counts.items():
                 totals[k] = totals.get(k, 0.0) + float(v)
         results = metrics.process_results(totals, self.f_beta)
@@ -311,15 +301,10 @@ class SingleNetTrainer:
         it = DeterministicIterator(split, cf.get("max_batch_size"), shuffle_every_epoch=False)
         while it.in_first_epoch:
             images, _, bneck_in = self._place_batch(it.next_batch)
-            if self.mesh is None:
-                best, p, bneck = train_step.predict_step(
-                    self.state.params, self.stage_config, images, bneck_in, self._mean, self._std
-                )
-            else:
-                best, p, bneck = train_step.predict_step_sharded(
-                    self.state.params, self.stage_config, self.mesh, images, bneck_in,
-                    self._mean, self._std,
-                )
+            best, p, bneck = train_step.predict_step(
+                self.state.params, self.stage_config, images, bneck_in, self._mean, self._std,
+                mesh=self.mesh,
+            )
             preds.append(best)
             if return_probabilities:
                 probs.append(p)
@@ -365,18 +350,11 @@ class SingleNetTrainer:
                 for batch in batches:
                     step += 1
                     images, labels, bneck = self._place_batch(batch)
-                    if self.mesh is None:
-                        loss = train_step.train_step(
-                            self.state, self.stage_config, self._loss_settings, self._augment,
-                            images, labels, bneck, self._mean, self._std,
-                            self._host_gen, self._device_gen,
-                        )
-                    else:
-                        loss = train_step.train_step_sharded(
-                            self.state, self.stage_config, self._loss_settings, self._augment,
-                            self.mesh, images, labels, bneck, self._mean, self._std,
-                            self._host_gen, self._device_gen,
-                        )
+                    loss = train_step.train_step(
+                        self.state, self.stage_config, self._loss_settings, self._augment,
+                        images, labels, bneck, self._mean, self._std,
+                        self._host_gen, self._device_gen, mesh=self.mesh,
+                    )
                     self.loss_history.append(loss)
 
                     if step % interrupt_often == 1 or step == self.iterations_total:

@@ -173,7 +173,7 @@ def test_train_mesh_devices_reaches_the_trainers_and_apps(tmp_path):
                summary_dir=str(tmp_path / "summary"))
     provider = tct.SyntheticProvider(24, 24, [12], seed=4)
     ds = provider.dataset(12)
-    assert ttrainer.SingleNetTrainer(ds, seed=0, device="cpu").mesh is None
+    assert ttrainer.SingleNetTrainer(ds, seed=0, device="cpu").mesh == tmesh.Mesh(["cpu"])
     tcf.set("train_mesh_devices", 2)
     assert ttrainer.SingleNetTrainer(ds, seed=0, device="cpu").mesh == tmesh.Mesh(("cpu",) * 2)
     assert tct.CascadeTrainer(provider, seed=0, device="cpu").mesh.size == 2
