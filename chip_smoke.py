@@ -43,8 +43,8 @@ Phases (each checked; any failure exits non-zero):
      (the 12 px stage) on one frame; the launch counts are reset just
      before and read just after each detect call; the batch walls (host
      NMS included) with ``native.available()``;
-  10. card vs CPU in crop mode: one 256x320 frame at scale factor 1.04
-     (13,367 windows, 61 levels), f32 with TF32 off, with the default
+  10. card vs CPU in crop mode: one 256x512 frame at scale factor 1.04
+     (7,936 windows, 49 levels), f32 with TF32 off, with the default
      kernels and again with ``dyn_reextract="on"``;
   11. K3 (csrc/cluster.cu) against its plain version on the 16 VGA frames'
      last-stage survivor boxes and alive masks: from an open-capacity
@@ -237,9 +237,29 @@ Phases (each checked; any failure exits non-zero):
      each shard's share of every capacity rung the re-dispatches reached).
      What one card cannot show (NCCL across two cards, two cards' shards
      overlapping) is printed as unverified.
+  31. the analysis tools in process on phase 18's cut flagship at its
+     operating point, host NMS, each run with K1 and K2 counted by launch
+     shape (spies on their wrappers, reset just before and read just
+     after): tools/operating_torch_points.py's grid at 3 thresholds x 2
+     min_neighbors over 20 benchmark scenes (its headline by the JAX rule);
+     tools/runtime_torch_density_sweep.py's ``--quick`` (VGA at 1.1 and
+     1.02, 1 pass) against a 48 px single net of fresh weights from seed
+     0, as phase 20 builds it: at 1.02 both stage 0s run in crop mode, K2
+     at 12 px for the cascade and at 48 px for the single net (at least one
+     48 px launch); K2 held against its plain version at every shape the
+     sweep launched it at (one ``kernels`` entry a shape); the bucketing
+     delta (tools/fddb_torch_bucketing_delta.py) on 1 fold; the ROC tool
+     with ``--reference-default --corpus-dir`` on phase 19's corpus
+     (threshold 0.5, min_neighbors 1, no resize buckets, the corpus
+     reused); tools/profile_torch_batch.py at VGA (1-16 frames) and
+     tools/profile_torch_cnn.py at 131,903 windows. K1 held against its
+     plain version at every (frames, boxes, window size, frame size) the
+     tools launched it at, on the inputs of its first launch there (one
+     ``kernels`` entry each, its launches summed over the tools).
 
 Phases 19 and 20 run their CPU legs on 1 fold and 2 scenes (2 and 4 until
-phases 26-28 came), to keep the script's time.
+phases 26-28 came) and phase 10 on a 256x512 frame at 1.04 (7,936
+windows; 256x320, 13,367, until phase 31 came), to keep the script's time.
 
 Kernels against plain versions: at most 1e-4 of the values may differ, each
 by at most 1 (bit-exact is expected); K3's and K2p's outputs must be equal.
@@ -253,8 +273,10 @@ at that path's shapes; K2, K1's re-extraction and K1's stage 0 also for the
 FDDB app; K1 and K3 also for phase 22's dynamic bundle, K2 for its
 crop-mode bundle; K1 for phase 27's visualizer, once for each dispatch
 shape; K1 at 299 px for phase 29, once for each held shape; K1 and K2 at
-each of phase 30's shard-local launch shapes); the line before that is the card's name
-and power limit. Without
+each of phase 30's shard-local launch shapes; K2 at each shape phase 31's
+density sweep launched it at, 12 and 48 px, and K1 at each shape phase
+31's tools launched it at); the line before that is the
+card's name and power limit. Without
 CUDA the script prints a message to stderr and exits 2.
 """
 
@@ -280,9 +302,10 @@ DENSE_HW = (450, 450)
 DENSE_WSF = 1.005
 DENSE_WINDOWS = 131903
 DENSE_CAPS_BY_SIZE = {24: 16512, 48: 4224}  # the dense path's default capacities
-# card-vs-CPU crop-mode frame: 13,367 windows over 61 levels (at 1.02, until
-# phase 29 came, 25,534 over 119: the CPU legs halved to keep the script's time)
-CROP_CHECK = (256, 320, 1.04)
+# card-vs-CPU crop-mode frame: 7,936 windows over 49 levels, K4's gate open
+# (256x320 until phase 31 came, 13,367 over 61; at 1.02 until phase 29
+# came, 25,534 over 119: the CPU legs cut to keep the script's time)
+CROP_CHECK = (256, 512, 1.04)
 MAX_BAD_FRACTION = 1e-4  # kernel vs plain: values allowed to differ, each by at most 1
 BORDERLINE_FRACTION = 0.02  # survivor flips allowed between two runs
 
@@ -465,41 +488,51 @@ def phase_k1(torch, label, planes, coords, caps_by_size):
     """K1 against its plain version at one path's re-extraction shapes:
     per frame and window size, as many of the path's window boxes as its
     default capacity."""
-    from rapidobjectdetectionusingcascadedcnns_torch.ops import windows, windows_cuda
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import windows
 
     n_frames, _, img_h, img_w = planes.shape
     gen = torch.Generator(device=planes.device).manual_seed(0)
     out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     for size, n in caps_by_size.items():
-        per_block, band, smem = windows_cuda.launch_geometry(size, size, 3)
         ids = torch.randint(0, coords.shape[0], (n_frames, n), generator=gen,
                             device=planes.device)
         sy, sx = windows.sample_positions(coords[ids], img_h, img_w, size, size)
-        sy, sx = sy.contiguous(), sx.contiguous()
-        got = windows_cuda.crop_and_resize_cuda(planes, sy, sx)
-        ref = windows.resample_plain(planes, sy, sx)
-        torch.cuda.synchronize()
-        assert got.shape == (n_frames, n, size, size, 3), got.shape
-        n_bad, total, err = _compare(got, ref, "K1 {} {}px".format(label, size))
-        del ref
-        ms = _median_ms(lambda: windows_cuda.crop_and_resize_cuda(planes, sy, sx), torch)
-        pms = _median_ms(lambda: windows.resample_plain(planes, sy, sx), torch,
-                         warmup=1, iters=5, reps=1)
-        lib_ms = _grid_sample_ms(torch, planes, sy, sx)
-        bound_ms, bound_by = _bound((planes, sy, sx), (got,), got.numel())
-        print("K1 ({}) {}px x {} boxes x {} frames {}x{}: {} of {} values differ (max {}), "
-              "kernel {:.4f} ms, plain {:.4f} ms, grid_sample {:.4f} ms, bound {:.4f} ms ({}; "
-              "{:.1%} of it); {} boxes per block, {} rows a block, {} B of shared "
-              "memory".format(
-                  label, size, n, n_frames, img_h, img_w, n_bad, total, err, ms, pms, lib_ms,
-                  bound_ms, bound_by, bound_ms / ms, per_block, band, smem))
-        out["max_abs_err"] = max(out["max_abs_err"], err)
-        out["ms"] += ms
-        out["plain_ms"] += pms
-        out["library_ms"] += lib_ms
-        out["bound_ms"] += bound_ms
-        out["bound_by"] = bound_by
+        m = _k1_hold(torch, label, planes, sy.contiguous(), sx.contiguous())
+        out["max_abs_err"] = max(out["max_abs_err"], m["max_abs_err"])
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            out[key] += m[key]
+        out["bound_by"] = m["bound_by"]
     return out
+
+
+def _k1_hold(torch, label, planes, sy, sx):
+    """K1 against its plain version at one launch shape: ``planes`` (B, C,
+    H, W) bf16 sampled at ``sy`` (B, N, s) and ``sx`` (B, N, s). Returns
+    the metrics of one ``kernels`` entry."""
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import windows, windows_cuda
+
+    n_frames, _, img_h, img_w = planes.shape
+    n, size = sy.shape[1], sy.shape[2]
+    per_block, band, smem = windows_cuda.launch_geometry(size, size, 3)
+    got = windows_cuda.crop_and_resize_cuda(planes, sy, sx)
+    ref = windows.resample_plain(planes, sy, sx)
+    torch.cuda.synchronize()
+    assert got.shape == (n_frames, n, size, size, 3), got.shape
+    n_bad, total, err = _compare(got, ref, "K1 {} {}px".format(label, size))
+    del ref
+    ms = _median_ms(lambda: windows_cuda.crop_and_resize_cuda(planes, sy, sx), torch)
+    pms = _median_ms(lambda: windows.resample_plain(planes, sy, sx), torch,
+                     warmup=1, iters=5, reps=1)
+    lib_ms = _grid_sample_ms(torch, planes, sy, sx)
+    bound_ms, bound_by = _bound((planes, sy, sx), (got,), got.numel())
+    print("K1 ({}) {}px x {} boxes x {} frames {}x{}: {} of {} values differ (max {}), "
+          "kernel {:.4f} ms, plain {:.4f} ms, grid_sample {:.4f} ms, bound {:.4f} ms ({}; "
+          "{:.1%} of it); {} boxes per block, {} rows a block, {} B of shared "
+          "memory".format(
+              label, size, n, n_frames, img_h, img_w, n_bad, total, err, ms, pms, lib_ms,
+              bound_ms, bound_by, bound_ms / ms, per_block, band, smem))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
 
 
 def phase_vga_path(torch, detector, frames, kind, card):
@@ -575,8 +608,9 @@ def _dense_images(torch, device, frames):
 
 def _k2_hold(torch, planes, plan, sched, label):
     """K2 against its plain version on every slot of ``sched`` (the
-    schedule of ``plan``'s 12 px windows) over the frames' bf16
-    ``planes``: error, times, grid_sample's time and the bound."""
+    schedule of ``plan``'s windows, 12 px for the cascade's stage 0, 48 px
+    for the single net's) over the frames' bf16 ``planes``: error, times,
+    grid_sample's time and the bound."""
     import numpy as np
     from rapidobjectdetectionusingcascadedcnns_torch.ops import (
         pyramid,
@@ -604,20 +638,22 @@ def _k2_hold(torch, planes, plan, sched, label):
     pms = _median_ms(plain, torch, warmup=1, iters=5, reps=1)
     # the yardstick samples every slot at its global positions
     order = sched.device_tables(device)[0]
-    gsy, gsx = windows.sample_positions(boxes, *hw, 12, 12)
+    gsy, gsx = windows.sample_positions(boxes, *hw, sched.out_h, sched.out_w)
     n_frames = planes.shape[0]
     lib_ms = _grid_sample_ms(torch, planes, gsy[order].expand(n_frames, -1, -1),
                              gsx[order].expand(n_frames, -1, -1))
     bound_ms, bound_by = _bound((planes, sy, sx, tiles), (got,), got.numel())
-    smem, budget = windows_sched_cuda.launch_geometry(sched.tile, 12, 12, planes.shape[1])
+    smem, budget = windows_sched_cuda.launch_geometry(sched.tile, sched.out_h, sched.out_w,
+                                                      planes.shape[1])
     staged = windows_sched_cuda.staging_bytes(sy, sx, tiles, sched.tile, planes.shape[1], *hw)
     n_direct = int(((staged < 0) | (staged > budget)).sum())
-    print("K2 ({}) {} frames {}x{}: n_slots {} for {} windows in {} classes {}; "
+    print("K2 ({}) {} frames {}x{} at {} px: n_slots {} (tiles of {}) for {} windows in {} "
+          "classes {}; "
           "{} of {} values differ (max {}), kernel {:.4f} ms, plain {:.4f} ms, grid_sample "
           "{:.4f} ms, bound {:.4f} ms ({}), {:.1%} of the bound reached; {} B shared a "
           "block, staging budget {} B, staged support per tile median {:.0f} B max {} B, "
           "{} of {} tiles over the budget (sampled from the planes)".format(
-              label, n_frames, hw[0], hw[1], sched.n_slots,
+              label, n_frames, hw[0], hw[1], sched.out_h, sched.n_slots, sched.tile,
               plan.n_windows, len(sched.classes),
               [(c.cell_r, c.cell_c, c.n_tiles) for c in sched.classes],
               n_bad, total, err, ms, pms, lib_ms, bound_ms, bound_by, bound_ms / ms, smem,
@@ -817,11 +853,12 @@ def phase_card_vs_cpu_crop(device):
     img = synthetic.make_scene(h, w, n_faces=2, seed=31, min_face=40, max_face=120).image
     for dyn in ("auto", "on"):
         cf.set("dyn_reextract", dyn)
-        det_cpu = cascade.CascadeDetector(model_cpu)
-        plan = det_cpu._plan_and_table(h, w)[0]
+        plan = cascade.CascadeDetector(model_cpu)._plan_and_table(h, w)[0]
         assert cascade.resolve_extraction_mode(plan) == "crop" and plan.n_scales > 48
         # open capacities: one pass each, no saturation re-runs on the CPU
+        # (a detector reads them when it is made)
         cf.set("cascade_capacity_schedule", [plan.n_windows, plan.n_windows])
+        det_cpu = cascade.CascadeDetector(model_cpu)
         t0 = time.perf_counter()
         res_cpu = _quietly(det_cpu.detect, img)
         cpu_s = time.perf_counter() - t0
@@ -1737,9 +1774,10 @@ def _box_set(boxes):
     return {tuple(round(float(v), 3) for v in row) for row in boxes}
 
 
-def phase_fddb(torch, model, kind, card):
+def phase_fddb(torch, model, corpus_dir, kind, card):
     """19. The FDDB app on the card with the flagship: the synthetic 10-fold
-    corpus (2 images a fold at its default sizes) through
+    corpus (2 images a fold at its default sizes, written to
+    ``corpus_dir``, which phase 31 reads again) through
     ``EvaluateFDDBApp`` and its forced settings (scale factor 1.005, one
     image a call, corpus-derived resize buckets); then the app again on the
     CPU over the first 2 folds, fold files compared. Returns the card
@@ -1759,7 +1797,7 @@ def phase_fddb(torch, model, kind, card):
     work = tempfile.mkdtemp(prefix="chip_smoke_fddb_")
     try:
         img_base, folds_dir, _ = fddb.make_synthetic_corpus(
-            work, n_folds=10, imgs_per_fold=FDDB_IMGS_PER_FOLD, seed=0)
+            corpus_dir, n_folds=10, imgs_per_fold=FDDB_IMGS_PER_FOLD, seed=0)
         n_images = 10 * FDDB_IMGS_PER_FOLD
         _fddb_settings(cf, work, img_base, folds_dir, "card")
         torch.cuda.synchronize()
@@ -2669,11 +2707,14 @@ INC_CENTRED_SHARE = 0.05
 
 
 @contextlib.contextmanager
-def _k1_launches_by_shape():
+def _k1_launches_by_shape(inputs=None):
     """K1's launches by launch shape while the block runs: the wrapper
     counts each launch (``LAUNCHES``); this splits the count by the
     launch's (frames, boxes, window size). Yields {(frames, boxes, size):
-    launches}."""
+    launches}. With ``inputs`` (a dict), also keeps the first launch's
+    inputs at each (frames, boxes, size, height, width): ``inputs[key] =
+    [launches, planes, sy, sx]`` (the planes by reference: the detectors
+    make them anew for every chunk and write them once)."""
     windows_cuda = _kernel_modules()[0]
     real = windows_cuda.crop_and_resize_cuda
     counts = {}
@@ -2682,7 +2723,12 @@ def _k1_launches_by_shape():
         before = windows_cuda.LAUNCHES
         out = real(planes, sy, sx)
         key = tuple(int(n) for n in sy.shape)
-        counts[key] = counts.get(key, 0) + windows_cuda.LAUNCHES - before
+        launched = windows_cuda.LAUNCHES - before
+        counts[key] = counts.get(key, 0) + launched
+        if inputs is not None:
+            seen = inputs.setdefault(key + tuple(int(n) for n in planes.shape[2:]),
+                                     [0, planes, sy.clone(), sx.clone()])
+            seen[0] += launched
         return out
 
     windows_cuda.crop_and_resize_cuda = counted
@@ -2693,17 +2739,18 @@ def _k1_launches_by_shape():
 
 
 @contextlib.contextmanager
-def _k2_launches_by_frames():
-    """K2's launches by frame count while the block runs, as
-    :func:`_k1_launches_by_shape` counts K1's. Yields {frames: launches}."""
+def _k2_launches_by_shape():
+    """K2's launches by launch shape while the block runs, as
+    :func:`_k1_launches_by_shape` counts K1's. Yields {(frames, slots,
+    window size): launches}."""
     windows_sched_cuda = _kernel_modules()[1]
     real = windows_sched_cuda.resample_sched_cuda
     counts = {}
 
-    def counted(planes, *args):
+    def counted(planes, sy, *args):
         before = windows_sched_cuda.LAUNCHES
-        out = real(planes, *args)
-        key = int(planes.shape[0])
+        out = real(planes, sy, *args)
+        key = (int(planes.shape[0]), int(sy.shape[0]), int(sy.shape[1]))
         counts[key] = counts.get(key, 0) + windows_sched_cuda.LAUNCHES - before
         return out
 
@@ -3224,17 +3271,18 @@ def _free_port():
     return port
 
 
-def _spied_launches(run):
-    """``run()`` with K1 counted by launch shape and K2 by frame count;
-    returns (its result, (launches of K1, K2, K4, K3), K1 by shape, K2 by
-    frames). Fails if a launch escaped the spies."""
+def _spied_launches(run, k1_inputs=None):
+    """``run()`` with K1 and K2 counted by launch shape; returns (its
+    result, (launches of K1, K2, K4, K3), K1 by shape, K2 by shape). Fails
+    if a launch escaped the spies. ``k1_inputs``: as
+    :func:`_k1_launches_by_shape`'s ``inputs``."""
     _reset_launches()
-    with _k1_launches_by_shape() as k1_shapes, _k2_launches_by_frames() as k2_frames:
+    with _k1_launches_by_shape(k1_inputs) as k1_shapes, _k2_launches_by_shape() as k2_shapes:
         out = run()
     launches = tuple(m.LAUNCHES for m in _kernel_modules())
     assert sum(k1_shapes.values()) == launches[0], (k1_shapes, launches)
-    assert sum(k2_frames.values()) == launches[1], (k2_frames, launches)
-    return out, launches, dict(k1_shapes), dict(k2_frames)
+    assert sum(k2_shapes.values()) == launches[1], (k2_shapes, launches)
+    return out, launches, dict(k1_shapes), dict(k2_shapes)
 
 
 def _mesh_frames(torch, model, mesh, caps, frames, kind, card, label):
@@ -3252,8 +3300,11 @@ def _mesh_frames(torch, model, mesh, caps, frames, kind, card, label):
     _quietly(sharded.detect_batch_yuv420, frames)  # warm-up
     sharded.redispatches = 0
     torch.cuda.synchronize()
-    got, launches, k1_shapes, k2_frames = _spied_launches(
+    got, launches, k1_shapes, k2_shapes = _spied_launches(
         lambda: _quietly(sharded.detect_batch_yuv420, frames))
+    k2_frames = {}
+    for (n_frames, _, _), n in k2_shapes.items():
+        k2_frames[n_frames] = k2_frames.get(n_frames, 0) + n
     pairs = [_flips(a, b) for a, b in zip(got, ref)]
     n_flips = sum(len(p[0]) for p in pairs)
     survivors = sum(len(p[2] | p[3]) for p in pairs)
@@ -3626,6 +3677,222 @@ def phase_meshes(torch, device, flagship, frames, dense, kind, card):
     print("phase 30: {:.1f} s".format(time.perf_counter() - t_phase))
     return holds
 
+GRID = ((0.3, 0.5, 0.7), (0, 1), 20)  # thresholds, min_neighbors, scenes of phase 31's grid
+SWEEP_REPS = 1  # passes of phase 31's density sweep (the tool's default 3)
+BUCKET_FOLDS = 1  # folds of phase 31's bucketing delta (the tool's default 4)
+PROFILE_ITERS = 5  # calls a point of phase 31's profiles
+
+
+def _tool_run(label, run, k1_runs):
+    """``run()`` with its stdout captured and its launches counted (K1 and
+    K2 by launch shape); prints the wall and the launches. Adds K1's
+    launches and the first inputs at each (frames, boxes, px, height,
+    width) to ``k1_runs`` ({key: [launches, planes, sy, sx, [labels]]}).
+    Returns (its result, K2's launches by (frames, slots, px))."""
+    import torch
+
+    t0 = time.perf_counter()
+    seen = {}
+    out, launches, k1_shapes, k2_shapes = _spied_launches(lambda: _quietly(run), seen)
+    torch.cuda.synchronize()
+    for key, (n, planes, sy, sx) in seen.items():
+        entry = k1_runs.setdefault(key, [0, planes, sy, sx, []])
+        entry[0] += n
+        entry[4].append(label)
+    print("phase 31 {}: {:.2f} s; launches K1 {} K2 {} K4 {} K3 {}; K1 by (frames, boxes, "
+          "px) {}; K2 by (frames, slots, px) {}".format(
+              label, time.perf_counter() - t0, *launches, k1_shapes, k2_shapes))
+    return out, k2_shapes
+
+
+def _tool_k1_holds(torch, k1_runs):
+    """K1 against its plain version at every shape phase 31's tools
+    launched it at, on the inputs of the first launch at that shape: the
+    kwargs of one ``kernels`` entry each, with its launches summed over the
+    tools that launched it."""
+    holds = []
+    for key in sorted(k1_runs):
+        n_frames, n_boxes, px, img_h, img_w = key
+        launches, planes, sy, sx, labels = k1_runs.pop(key)
+        what = "{} frame(s) of {}x{} x {} boxes at {} px".format(
+            n_frames, img_h, img_w, n_boxes, px)
+        m = _k1_hold(torch, "analysis tools, " + what, planes, sy, sx)
+        holds.append(("K1 crop_and_resize (analysis tools: {}; launched by {})".format(
+            what, ", ".join(labels)), "resample.cu", "ops/windows_pallas.py:63", launches, m))
+        del planes, sy, sx
+    torch.cuda.empty_cache()
+    return holds
+
+
+def _sweep_k2_holds(torch, sweep_tool, k2_shapes):
+    """K2 against its plain version at every shape the density sweep
+    launched it at, on the frames of the sweep's first batch of that
+    shape: the kwargs of one ``kernels`` entry each."""
+    import numpy as np
+    from rapidobjectdetectionusingcascadedcnns_torch.data import synthetic
+    from rapidobjectdetectionusingcascadedcnns_torch.ops import pyramid, windows, windows_sched
+
+    holds = []
+    for (n_frames, n_slots, px), launches in sorted(k2_shapes.items()):
+        for wsf in sweep_tool.DENSITIES:
+            plan = pyramid.build_plan(IMG_H, IMG_W, px, px, 0.075, wsf)
+            sched = windows_sched.schedule_for_plan(plan, px, px)
+            if sched is not None and sched.n_slots == n_slots:
+                break
+        else:
+            raise AssertionError("no sweep plan has {} slots at {} px".format(n_slots, px))
+        images = np.stack([synthetic.make_scene(IMG_H, IMG_W, n_faces=3, seed=100 + s,
+                                                min_face=48, max_face=120).image
+                           for s in range(n_frames)])
+        planes = windows.to_planes_bf16(torch.as_tensor(images, device="cuda").float())
+        family = "single 48 px net" if px == 48 else "flagship cascade"
+        m = _k2_hold(torch, planes, plan, sched, "density sweep, {}, VGA at {}".format(
+            family, wsf))
+        holds.append(("K2 scheduled stage-0 extraction ({}, density sweep: VGA at {}, {} frames "
+                      "x {} slots at {} px)".format(family, wsf, n_frames, n_slots, px),
+                      "sched.cu", "ops/windows_sched.py:259", launches, m))
+        del planes
+        torch.cuda.empty_cache()
+    return holds
+
+
+def phase_analysis_tools(torch, flagship, corpus_dir, kind, card):
+    """31. The analysis tools in process on phase 18's cut flagship. Returns
+    the ``kernels`` entries of K2 at every shape the density sweep launched
+    it at and of K1 at every shape the tools launched it at."""
+    import numpy as np
+    import os
+
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cnn
+    from rapidobjectdetectionusingcascadedcnns_torch.models.single import SingleNetDetector
+    from rapidobjectdetectionusingcascadedcnns_torch.train import checkpoint
+
+    t_phase = time.perf_counter()
+    model, caps = flagship["model"], flagship["caps"]
+    points_tool = _load_tool("operating_torch_points")
+    sweep_tool = _load_tool("runtime_torch_density_sweep")
+    delta_tool = _load_tool("fddb_torch_bucketing_delta")
+    roc_tool = _load_tool("fddb_torch_roc")
+    batch_tool = _load_tool("profile_torch_batch")
+    cnn_tool = _load_tool("profile_torch_cnn")
+    saved = cf.snapshot()
+    k1_runs = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        _flagship_settings(cf)
+        cf.set("nms_on_device", False)  # host NMS, as the tools run
+
+        # 31a. the operating-point grid
+        thresholds, min_neighbors, n_scenes = GRID
+        grid, _ = _tool_run("operating-point grid", lambda: points_tool.operating_points(
+            model, thresholds, min_neighbors, n_scenes), k1_runs)
+        points = grid["points"]
+        assert [(p["min_neighbors"], p["threshold"]) for p in points] == [
+            (mn, thr) for mn in min_neighbors for thr in thresholds]
+        assert grid["headline"] == points_tool.headline(points)
+        print("grid ({} scenes): {}; headline {}".format(n_scenes, [
+            (p["threshold"], p["min_neighbors"], p["recall"], p["false_pos_per_scene"])
+            for p in points], grid["headline"] and (
+            grid["headline"]["threshold"], grid["headline"]["min_neighbors"],
+            grid["headline"]["recall"], grid["headline"]["false_pos_per_scene"])))
+
+        # 31b. the density sweep's --quick, a 48 px single net of fresh weights
+        recipe_convs = cf.get("conv_filter_sizes")
+        cf.set("conv_filter_sizes", [32])  # the flagship's 48 px architecture, as phase 20
+        scfg = cnn.StageConfig.from_config(48, bottleneck_in_size=None)
+        cf.set("conv_filter_sizes", recipe_convs)
+        single = SingleNetDetector(
+            cnn.init_stage(scfg, torch.Generator().manual_seed(0)), scfg,
+            np.full((48, 48, 3), 127.5, np.float32), np.full((48, 48, 3), 64.0, np.float32),
+            "cuda")
+        sweep, k2_sweep = _tool_run("density sweep --quick", lambda: sweep_tool.density_sweep(
+            model, single, FLAG_THRESHOLD, sizes=sweep_tool.SIZES[:1],
+            densities=sweep_tool.DENSITIES[:2], reps=SWEEP_REPS), k1_runs)
+        at_48 = {shape: n for shape, n in k2_sweep.items() if shape[2] == 48}
+        assert sum(at_48.values()) >= 1, k2_sweep
+        for key, entry in sweep.items():
+            for family in ("cascade", "single"):
+                e = entry[family]
+                assert e["fps"] > 0 and len(e["rates"]) == SWEEP_REPS, (key, family, e)
+            print("sweep {}: cascade {:.2f} fps (rates {}, windows {}, {}, capacities {}, "
+                  "survivors max {}, saturated {}), single {:.2f} fps (rates {}, windows {}, "
+                  "slots {}, {}, chunk {}, survivors max {}), speedup {:.3f}; launches "
+                  "(calls) cascade {} ({}), single {} ({})".format(
+                      key, entry["cascade"]["fps"], entry["cascade"]["rates"],
+                      entry["cascade"]["n_windows"], entry["cascade"]["extraction_mode"],
+                      entry["cascade"]["capacities"], entry["cascade"]["survivors_max"],
+                      entry["cascade"]["saturated"], entry["single"]["fps"],
+                      entry["single"]["rates"], entry["single"]["n_windows"],
+                      entry["single"]["n_slots"], entry["single"]["extraction_mode"],
+                      entry["single"]["window_chunk"], entry["single"]["survivors_max"],
+                      entry["speedup_cascade_vs_single"], entry["cascade"]["launches"],
+                      entry["cascade"]["calls"], entry["single"]["launches"],
+                      entry["single"]["calls"]))
+        dense_single = sweep["480x640@wsf1.02"]["single"]
+        assert dense_single["extraction_mode"] == "crop" and dense_single["window_chunk"] == 1024
+        print("sweep: host NMS with native.available() {}; on {} [{}]".format(
+            _native(), kind, card))
+        del single
+        torch.cuda.empty_cache()
+        holds = _sweep_k2_holds(torch, sweep_tool, k2_sweep)
+
+        # 31c. the bucketing delta
+        delta, _ = _tool_run("bucketing delta", lambda: delta_tool.bucketing_delta(
+            model, folds=BUCKET_FOLDS), k1_runs)
+        for mode in ("exact", "bucketed"):
+            assert delta[mode]["n_images"] == 2 * BUCKET_FOLDS, delta
+        print("bucketing delta ({} fold(s), buckets {}): {}".format(
+            BUCKET_FOLDS, delta["buckets"], json.dumps(
+                {k: delta[k] for k in ("exact", "bucketed", "recall_delta")})))
+
+        # 31d. the ROC tool's --reference-default on phase 19's corpus
+        cf.restore(saved)
+        assert roc_tool.corpus_ready(corpus_dir), corpus_dir  # reused, not synthesized
+        checkpoint.save_cascade(os.path.join(work, "models"), "flagship", model)
+        out = os.path.join(work, "roc_default.json")
+        _tool_run("ROC --reference-default", lambda: roc_tool.main([
+            "--checkpoint", os.path.join(work, "models", "model_flagship"),
+            "--reference-default", "--corpus-dir", corpus_dir, "--out", out]), k1_runs)
+        with open(out) as f:
+            roc = json.load(f)
+        config = roc["config"]
+        assert roc["roc"] and config["reference_default"] and config["resize_buckets"] is None
+        assert (config["thresholds"], config["min_neighbors"]) == (0.5, 1), config
+        assert config["n_images"] == 10 * FDDB_IMGS_PER_FOLD, config
+        end = roc["roc"][-1]
+        print("ROC --reference-default on phase 19's corpus: {} images, {:.4f} s an image, "
+              "{} faces, detection rate {:.4f} discrete / {:.4f} continuous at {} false "
+              "positives; re-dispatches {}, launches {}".format(
+                  config["n_images"], config["secs_per_image"], roc["n_faces"],
+                  end["detection_rate"], end["detection_rate_continuous"],
+                  end["false_positives"], config["redispatches"], config["kernel_launches"]))
+
+        # 31e. the profiles, at one size each
+        cf.restore(saved)
+        _flagship_settings(cf)
+        cf.set("nms_on_device", False)
+        slope, _ = _tool_run("batch profile", lambda: batch_tool.batch_slope(
+            model, caps, iters=PROFILE_ITERS), k1_runs)
+        assert slope["slope_ms_per_frame"] > 0, slope
+        print("batch profile (VGA YUV, capacities {}): {}; slope {:.4f} ms a frame, "
+              "intercept {:.4f} ms a call".format(
+                  caps, [(p["frames"], round(p["ms"], 4)) for p in slope["points"]],
+                  slope["slope_ms_per_frame"], slope["intercept_ms"]))
+        parts, _ = _tool_run("stage-0 CNN profile", lambda: cnn_tool.stage_parts(
+            model, DENSE_WINDOWS, 16384, iters=PROFILE_ITERS), k1_runs)
+        assert all(v > 0 for v in parts.values()), parts
+        print("stage-0 CNN profile ({} windows, chunks of 16,384, bf16, conv {}): {}; on {} "
+              "[{}]".format(DENSE_WINDOWS, list(model.stage_configs[0].conv_filter_sizes),
+                           {k: round(v, 4) for k, v in parts.items()}, kind, card))
+        holds += _tool_k1_holds(torch, k1_runs)
+    finally:
+        cf.restore(saved)
+        shutil.rmtree(work, ignore_errors=True)
+    print("phase 31: {:.1f} s".format(time.perf_counter() - t_phase))
+    return holds
+
+
 
 def _kernel_line(name, source, replaces, launches, m):
     return {
@@ -3738,7 +4005,8 @@ def main() -> int:
 
     # ---- 19-21. the evaluation entry points, with the flagship ---------------
     _build.build()  # every library up to date, so the CLI's process builds nothing
-    fddb_app = phase_fddb(torch, flagship["model"], kind, card)
+    fddb_corpus = tempfile.mkdtemp(prefix="chip_smoke_fddb_corpus_")
+    fddb_app = phase_fddb(torch, flagship["model"], fddb_corpus, kind, card)
     torch.cuda.empty_cache()
     phase_runtime(torch, flagship["model"], kind, card)
     phase_cli(torch, flagship["model"])
@@ -3783,6 +4051,13 @@ def main() -> int:
     # ---- 30. meshes ---------------------------------------------------------------
     torch.cuda.empty_cache()
     mesh_holds = phase_meshes(torch, device, flagship, frames, dense, kind, card)
+
+    # ---- 31. the analysis tools ------------------------------------------------------
+    torch.cuda.empty_cache()
+    try:
+        tool_holds = phase_analysis_tools(torch, flagship, fddb_corpus, kind, card)
+    finally:
+        shutil.rmtree(fddb_corpus, ignore_errors=True)
 
     loaded = sorted(
         m for m in sys.modules
@@ -3841,6 +4116,7 @@ def main() -> int:
                              "resample.cu", "ops/windows_pallas.py:63", launches, m)
                 for what, launches, m in k1_inception]
     kernels += [_kernel_line(*hold) for hold in mesh_holds]
+    kernels += [_kernel_line(*hold) for hold in tool_holds]
     if fddb_app["unscheduled"]:
         kernels.append(_kernel_line(
             "K1 crop_and_resize (flagship, FDDB app stage 0 at the unscheduled sizes {}, "

@@ -610,6 +610,16 @@ def pack_result(window_ids, conf, alive, diagnostics, *nms_tail) -> torch.Tensor
     return torch.cat(parts, dim=1)
 
 
+def _stack_frames(frames: Sequence, device: torch.device) -> torch.Tensor:
+    """One batch tensor on ``device`` of host frames (numpy arrays,
+    uploaded) or of frames already staged on the card (tensors, stacked
+    there), so that a caller that stages its frames keeps the upload out of
+    what it times."""
+    if torch.is_tensor(frames[0]):
+        return torch.stack(list(frames)).to(device)
+    return torch.as_tensor(np.stack(frames), device=device)
+
+
 class CascadeDetector:
     """Host orchestration around :func:`cascade_core`.
 
@@ -741,8 +751,10 @@ class CascadeDetector:
         return self._detect_batch_exact(frames, yuv=True)
 
     def _run_chunk(self, frames: Sequence, yuv: bool, caps, entry, resample: Optional[str]):
-        """Upload one chunk of frames and enqueue its cascade; returns the
-        packed (B, row) tensor on the device (not yet synchronised).
+        """Upload one chunk of frames (host arrays; or tensors already on
+        the card, which :func:`_stack_frames` stacks there) and enqueue its
+        cascade; returns the packed (B, row) tensor on the device (not yet
+        synchronised).
         ``resample`` overrides the configured kernels (the K1 re-run after
         a K4 overflow). With ``nms_on_device`` the program ends in the
         groupRectangles tail. The chunk is padded to a multiple of the mesh
@@ -768,11 +780,11 @@ class CascadeDetector:
         n_stages = self.model.n_nets
         with mesh_mod.on_device(device):
             if yuv:
-                y = torch.as_tensor(np.stack([f[0] for f in frames]), device=device)
-                uv = torch.as_tensor(np.stack([f[1] for f in frames]), device=device)
+                y = _stack_frames([f[0] for f in frames], device)
+                uv = _stack_frames([f[1] for f in frames], device)
                 images = yuv420_to_rgb(y, uv)
             else:
-                images = torch.as_tensor(np.stack(frames), device=device).float()
+                images = _stack_frames(frames, device).float()
             out = cascade_core(
                 images,
                 coords_norm,
@@ -835,16 +847,20 @@ class CascadeDetector:
 
             for chunk, packed in done:
                 for j, i in enumerate(chunk):
-                    result = self._unpack_row(packed[j], capacities, plan, table)
-                    if self._is_saturated(
-                        result.n_survivors_per_stage, capacities,
-                        result.reextract_overflows,
-                    ):
-                        result = self._handle_saturation(
-                            images[i], result, capacities, plan, table, run
-                        )
-                    results[i] = result
+                    row, caps = packed[j], capacities
+                    if self._row_saturated(row, caps, plan):
+                        row, caps = self._handle_saturation(images[i], row, caps, plan, run)
+                    results[i] = self._unpack_row(row, caps, plan, table)
         return results  # type: ignore[return-value]
+
+    def _row_saturated(self, row, capacities, plan) -> bool:
+        """:meth:`_is_saturated` of a packed row, read from its counts (no
+        host NMS for a row that is re-dispatched)."""
+        from ..serve import packed_row_counts
+
+        survivors, overflows = packed_row_counts(
+            row, capacities, self.model.n_nets, plan.n_windows)
+        return self._is_saturated(survivors, capacities, overflows)
 
     def _unpack_row(self, row, capacities, plan, table) -> DetectionResult:
         from ..serve import unpack_packed_row
@@ -870,31 +886,34 @@ class CascadeDetector:
             return True
         return any(s > c for s, c in zip(survivors, capacities))
 
-    def _handle_saturation(self, frame, result, capacities, plan, table, run) -> DetectionResult:
+    def _handle_saturation(self, frame, row, capacities, plan, run):
         """Re-run the frame alone with doubled capacities (bounded retries)
         so no detection is lost to truncation; with
         ``cascade_saturation_redispatch`` off, warn once and keep the
         truncated result. A K4 big-class overflow is never kept: its
         windows carry other windows' pixels, so the frame gets one
         corrective re-run with K1 ("pallas"), at unchanged capacities when
-        re-dispatch is off, after the escalation budget otherwise."""
+        re-dispatch is off, after the escalation budget otherwise. Takes
+        and returns a packed row and its capacities: only the row that is
+        kept is decoded (host NMS included)."""
+        from ..serve import packed_row_counts
 
         def rerun(caps, resample=None):
             self.redispatches += 1
-            packed = run([frame], caps, resample).cpu().numpy()
-            return self._unpack_row(packed[0], caps, plan, table)
+            return run([frame], caps, resample).cpu().numpy()[0]
 
-        def overflowed(res) -> bool:
-            return bool(res.reextract_overflows and any(o > 0 for o in res.reextract_overflows))
+        def overflowed(r, caps) -> bool:
+            overflows = packed_row_counts(r, caps, self.model.n_nets, plan.n_windows)[1]
+            return any(o > 0 for o in overflows)
 
         if not cf.get("cascade_saturation_redispatch"):
-            if overflowed(result):
+            if overflowed(row, capacities):
                 log.log(
                     "WARNING: dynamic re-extraction big class overflowed "
                     "(cascade_saturation_redispatch is off); re-running with "
                     "the full-image resampler at unchanged capacities."
                 )
-                return rerun(list(capacities), resample="pallas")
+                return rerun(list(capacities), resample="pallas"), list(capacities)
             if not self._saturation_warned:
                 log.log(
                     "WARNING: a cascade stage saturated its survivor capacity; "
@@ -903,7 +922,7 @@ class CascadeDetector:
                     "retraining the stage or raising cascade_capacity_schedule."
                 )
                 self._saturation_warned = True
-            return result
+            return row, capacities
 
         def escalate(caps):
             log.log(
@@ -914,18 +933,17 @@ class CascadeDetector:
 
         ladder = capacity_ladder(capacities, plan.n_windows,
                                  int(cf.get("cascade_saturation_max_retries")))
-        result, caps = climb_ladder(
-            result, list(capacities), ladder, escalate,
-            lambda res, c: self._is_saturated(res.n_survivors_per_stage, c,
-                                              res.reextract_overflows),
+        row, caps = climb_ladder(
+            row, list(capacities), ladder, escalate,
+            lambda r, c: self._row_saturated(r, c, plan),
         )
-        if overflowed(result):
+        if overflowed(row, caps):
             log.log(
                 "WARNING: dynamic re-extraction big class overflowed; "
                 "re-dispatching with the full-image resampler."
             )
-            result = rerun(caps, resample="pallas")
-        return result
+            row = rerun(caps, resample="pallas")
+        return row, caps
 
 
 def build_cascade_model(

@@ -86,31 +86,42 @@ class SingleNetDetector:
             plan, table, boxes_float = self._plan_and_table(img_h, img_w)
             if plan.n_windows < 1:
                 raise ValueError("Could not extract any windows from the given image")
-            mode = resolve_extraction_mode(plan)
-            impl = resolve_resample_impl()
-            sched = (
-                _stage0_schedule(plan, self.stage_config.input_size, impl, False)
-                if mode == "crop"
-                else None
-            )
+            sched = self._schedule(plan)
             for s in range(0, len(idxs), max_frames):
-                chunk = idxs[s : s + max_frames]
+                batch = idxs[s : s + max_frames]
                 frames = torch.as_tensor(
-                    np.stack([images[i] for i in chunk]), device=self.device
-                ).float()
-                probs, _, _, valid = _stage0_apply(
-                    frames, boxes_float, plan, self.params, self.stage_config,
-                    self.mean, self.std, int(cf.get("inference_chunk_size")), mode,
-                    impl, False,
+                    np.stack([images[i] for i in batch]), device=self.device
                 )
-                fg = torch.argmax(probs, dim=2) == 1
-                if valid is not None:
-                    fg = fg & valid
-                conf = probs.max(dim=2).values
-                packed = torch.cat([fg.float(), conf], dim=1).cpu().numpy()
-                for j, i in enumerate(chunk):
+                packed = self._infer(frames, plan, boxes_float).cpu().numpy()
+                for j, i in enumerate(batch):
                     results[i] = self._unpack_row(packed[j], plan, table, sched)
         return results  # type: ignore[return-value]
+
+    def _schedule(self, plan):
+        """The K2 schedule that stage 0 of ``plan`` runs over (crop mode),
+        by which :meth:`_unpack_row` maps rows back to plan order; else
+        None."""
+        if resolve_extraction_mode(plan) != "crop":
+            return None
+        return _stage0_schedule(plan, self.stage_config.input_size, resolve_resample_impl(), False)
+
+    def _infer(self, frames: torch.Tensor, plan, boxes_float: torch.Tensor,
+               chunk: Optional[int] = None) -> torch.Tensor:
+        """(B, H, W, C) frames on the device -> packed (B, 2 M) float32
+        rows [fg_mask (M), confidence (M)], enqueued and not synchronised
+        (the JAX ``_single_infer_batch``); ``chunk`` is the windows a CNN
+        call takes (default ``inference_chunk_size``)."""
+        chunk = int(cf.get("inference_chunk_size")) if chunk is None else int(chunk)
+        probs, _, _, valid = _stage0_apply(
+            frames.float(), boxes_float, plan, self.params, self.stage_config,
+            self.mean, self.std, chunk, resolve_extraction_mode(plan),
+            resolve_resample_impl(), False,
+        )
+        fg = torch.argmax(probs, dim=2) == 1
+        if valid is not None:
+            fg = fg & valid
+        conf = probs.max(dim=2).values
+        return torch.cat([fg.float(), conf], dim=1)
 
     @staticmethod
     def _unpack_row(row: np.ndarray, plan, table, sched) -> DetectionResult:

@@ -104,6 +104,17 @@ def postprocess_raw(
     return out_boxes, out_conf
 
 
+def packed_row_counts(
+    row: np.ndarray, capacities: Sequence[int], n_stages: int, n_windows: int
+) -> Tuple[List[int], List[int]]:
+    """(survivors per stage, re-extract overflow counts) of one frame's
+    packed vector, read without decoding the rest of it."""
+    base = 3 * (capacities[-1] if capacities else n_windows)
+    survivors = [int(s) for s in row[base : base + n_stages]]
+    overflows = [int(s) for s in row[base + n_stages : base + 2 * n_stages - 1]]
+    return survivors, overflows
+
+
 def unpack_packed_row(
     row: np.ndarray,
     capacities: Sequence[int],
@@ -127,8 +138,7 @@ def unpack_packed_row(
     conf = row[cap_last : 2 * cap_last]
     alive = row[2 * cap_last : 3 * cap_last] > 0.5
     base = 3 * cap_last
-    survivors = [int(s) for s in row[base : base + n_stages]]
-    overflows = [int(s) for s in row[base + n_stages : base + 2 * n_stages - 1]]
+    survivors, overflows = packed_row_counts(row, capacities, n_stages, plan.n_windows)
     keep_ids = window_ids[alive]
     raw_boxes = table["coords_norm"][keep_ids]
     raw_conf = conf[alive]

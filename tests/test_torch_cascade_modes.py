@@ -11,6 +11,7 @@ from rapidobjectdetectionusingcascadedcnns_tpu import config as cf
 from rapidobjectdetectionusingcascadedcnns_tpu.data import synthetic
 from rapidobjectdetectionusingcascadedcnns_tpu.models import cascade as jcascade
 from rapidobjectdetectionusingcascadedcnns_tpu.ops.color import rgb_to_yuv420
+from rapidobjectdetectionusingcascadedcnns_torch import serve as tserve
 from rapidobjectdetectionusingcascadedcnns_torch.models import cascade as tcascade
 
 import torch_parity as tp
@@ -43,10 +44,11 @@ def test_detect_batch_yuv420_matches_jax(models):
         tp.assert_results_close(g, r)
 
 
-def test_forced_saturation_matches_jax(models):
+def test_forced_saturation_matches_jax(models, monkeypatch):
     """Threshold 0 keeps every window, so capacities [128, 128] overflow:
     the frame is re-dispatched with escalated capacities and the result
-    equals the JAX detector's (which escalates the same way)."""
+    equals the JAX detector's (which escalates the same way). Host NMS runs
+    once, on the row that is kept, and never on a re-dispatched one."""
     tp.configure(
         foreground_confidence_threshold=0.0,
         cascade_capacity_schedule=[128, 128],
@@ -55,8 +57,13 @@ def test_forced_saturation_matches_jax(models):
     img = _scene(6, 40, 48)
     ref = jcascade.CascadeDetector(models[0]).detect(img)
     det = tcascade.CascadeDetector(models[1])
+    calls = []
+    postprocess = tserve.postprocess_raw
+    monkeypatch.setattr(tserve, "postprocess_raw",
+                        lambda *a, **k: calls.append(len(a[0])) or postprocess(*a, **k))
     got = det.detect(img)
     assert det.redispatches >= 1
+    assert calls == [got.n_windows]
     assert got.n_survivors_per_stage == [got.n_windows] * 3
     assert got.n_survivors_per_stage == ref.n_survivors_per_stage
     tp.assert_results_close(got, ref)

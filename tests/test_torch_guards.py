@@ -352,19 +352,24 @@ def test_mesh_raises():
 
 def test_apps_and_cli_never_import_jax():
     """The FDDB app (corpus, detection, scorer), the CLI's
-    ``inference-cascade`` run as ``__main__`` and the port's FDDB and
-    runtime tools, in a fresh interpreter on the CPU: neither jax nor any
-    module of the JAX package may be loaded."""
+    ``inference-cascade`` run as ``__main__`` and the port's FDDB, runtime
+    and analysis tools (each analysis tool's work reached by a small call),
+    in a fresh interpreter on the CPU: neither jax nor any module of the
+    JAX package may be loaded."""
     code = (
         "import importlib, importlib.util, os, runpy, sys, tempfile\n"
         "import torch\n"
         "torch.set_num_threads(2)\n"
         "for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "for name in ('fddb_torch_roc', 'runtime_torch_eval'):\n"
+        "tools = {{}}\n"
+        "for name in ('fddb_torch_roc', 'runtime_torch_eval', 'operating_torch_points',\n"
+        "             'fddb_torch_bucketing_delta', 'runtime_torch_density_sweep',\n"
+        "             'profile_torch_batch', 'profile_torch_cnn'):\n"
         "    spec = importlib.util.spec_from_file_location(\n"
         "        name, os.path.join({repo!r}, 'tools', name + '.py'))\n"
-        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "    tools[name] = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(tools[name])\n"
         "from rapidobjectdetectionusingcascadedcnns_torch import config as cf\n"
         "from rapidobjectdetectionusingcascadedcnns_torch.apps import evaluate_fddb\n"
         "from rapidobjectdetectionusingcascadedcnns_torch.data import fddb\n"
@@ -373,6 +378,12 @@ def test_apps_and_cli_never_import_jax():
         "d = tempfile.mkdtemp()\n"
         "cf.set('conv_filter_sizes', [4]); cf.set('fc1_size', 8); cf.set('log_auto_save', False)\n"
         "model = cascade.build_cascade_model(seed=0, device='cpu')\n"
+        "assert tools['fddb_torch_roc'].roc_settings(reference_default=True)[1].endswith(\n"
+        "    '_default.json')\n"
+        "assert tools['operating_torch_points'].headline([]) is None\n"
+        "assert tools['fddb_torch_bucketing_delta'].score({{}}, {{}})['n_images'] == 0\n"
+        "assert tools['runtime_torch_density_sweep'].single_window_chunk(48) == 1024\n"
+        "assert tools['profile_torch_cnn'].stage_parts(model, 64, 32, iters=1)['stage'] > 0\n"
         "img_base, folds, _ = fddb.make_synthetic_corpus(d, n_folds=1, imgs_per_fold=1,\n"
         "                                                sizes=((64, 80),))\n"
         "for k, v in (('fddb_folds_dir', folds), ('fddb_img_base_dir', img_base),\n"

@@ -43,6 +43,11 @@ def models():
     of the frames on a 4-device JAX mesh."""
     if jax.device_count() < 4:
         pytest.skip("needs 4 virtual JAX devices")
+    # from the defaults: a module fixture runs before conftest's per-test
+    # restore, which brings back whatever the process's first test module
+    # had set when it took its snapshot
+    jcf.reset()
+    tcf.reset()
     tp.configure(**BASE_CFG)
     jmodel, tmodel = tp.jax_and_port_models(seed=0)
     ref = jcascade.CascadeDetector(jmodel, mesh=jmesh.get_mesh(4)).detect_batch(_frames())

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from rapidobjectdetectionusingcascadedcnns_tpu import config as jcf
 from rapidobjectdetectionusingcascadedcnns_torch import config as tcf
 from rapidobjectdetectionusingcascadedcnns_torch import serve as tserve
 from rapidobjectdetectionusingcascadedcnns_torch.data import synthetic
@@ -35,6 +36,11 @@ def _frame():
 
 @pytest.fixture(scope="module")
 def model():
+    # from the defaults: a module fixture runs before conftest's per-test
+    # restore, which brings back whatever the process's first test module
+    # had set when it took its snapshot
+    jcf.reset()
+    tcf.reset()
     tp.configure(**CFG)
     _, tmodel = tp.jax_and_port_models(seed=0)
     tcf.reset()

@@ -33,7 +33,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
-from fddb_torch_roc import ARTIFACT_DIR, DEFAULT_CHECKPOINT, card_line, split_checkpoint  # noqa: E402
+from fddb_torch_roc import ARTIFACT_DIR, DEFAULT_CHECKPOINT, card_line, load_checkpoint  # noqa: E402
 
 OUT_FILE = "torch_runtime_eval.json"
 
@@ -54,8 +54,7 @@ def main(argv=None):
     from rapidobjectdetectionusingcascadedcnns_torch.apps.evaluate_runtime import (
         EvaluateRuntimeApp,
     )
-    from rapidobjectdetectionusingcascadedcnns_torch.models import bridge, cnn
-    from rapidobjectdetectionusingcascadedcnns_torch.models.cascade import build_cascade_model
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cnn
     from rapidobjectdetectionusingcascadedcnns_torch.models.single import SingleNetDetector
     from rapidobjectdetectionusingcascadedcnns_torch.ops import windows_cuda, windows_sched_cuda
     from rapidobjectdetectionusingcascadedcnns_torch.utils import log
@@ -63,15 +62,8 @@ def main(argv=None):
 
     log.set_echo(True)
     device = resolve_device("cuda")
-    model_dir, session_key = split_checkpoint(args.checkpoint)
     flagship.flagship_config(cf)
-    try:
-        model = bridge.load_cascade(model_dir, session_key, device)
-        weights = {"kind": "trained", "session_key": session_key,
-                   "checkpoint": os.path.relpath(args.checkpoint, REPO)}
-    except FileNotFoundError:
-        model = build_cascade_model(seed=0, device=device)
-        weights = {"kind": "random", "seed": 0}
+    model, weights = load_checkpoint(args.checkpoint, device, random_seed=0)
 
     # the reference's inference geometry
     cf.set("window_scale_factor", 1.1)
