@@ -41,8 +41,9 @@ Phases (each checked; any failure exits non-zero):
      enough re-dispatch retries to reach the open capacities, then
      again with ``dyn_reextract="on"`` (K4), then ``SingleNetDetector``
      (the 12 px stage) on one frame; the launch counts are reset just
-     before and read just after each detect call; the batch walls (host
-     NMS included) with ``native.available()``;
+     before and read just after each detect call; one timed batch each
+     (the default run 3 until phase 32 came), host NMS included, with
+     ``native.available()``;
   10. card vs CPU in crop mode: one 256x512 frame at scale factor 1.04
      (7,936 windows, 49 levels), f32 with TF32 off, with the default
      kernels and again with ``dyn_reextract="on"``;
@@ -122,9 +123,10 @@ Phases (each checked; any failure exits non-zero):
      and not empty); K2 and K1 against their plain versions at this path's
      shapes (a scheduled-size corpus image at its default capacities, and
      K1's 12 px stage-0 chunk on a 320x240 one); then the same app on the CPU
-     over the first 2 folds, at capacities from the card's survivor maxima,
-     fold files compared: the same keys, survivor flips at most 2% and box
-     counts apart by at most the flips;
+     over fold 1's first image (a folds directory of its own), at
+     capacities from the card's survivor maxima, fold files compared: the
+     same keys, survivor flips at most 2% and box counts apart by at most
+     the flips;
   20. the runtime app: the flagship cascade against a 48 px single net
      (conv [32], fc1 512, fresh weights from seed 0) at VGA, scale factor
      1.1, threshold 0.5, min_neighbors 1, each family warmed then timed: on
@@ -141,9 +143,9 @@ Phases (each checked; any failure exits non-zero):
      would be truncated there and differ from the live re-dispatch),
      saved, loaded on the card and serving 1, 7, 16 and 23 frames, each
      equal to the live detector (K1 and K3 counted around each call; the
-     stage CNNs' 16,384-row chunks straddle frames); then random weights at
-     the default capacities [640, 256] through a 5-rung dynamic bundle
-     that reaches [5061, 4096] over the 16 VGA frames: every
+     stage CNNs' 16,384-row chunks straddle frames); then random weights
+     from [2560, 1024] through a 3-rung dynamic bundle that reaches
+     [5061, 4096] over the 16 VGA frames: every
      saturated frame re-run alone, as many re-runs as the live detector's
      re-dispatches, results equal; the batch wall against the same programs
      re-running each frame padded to 16 copies (a static bundle's re-runs);
@@ -203,7 +205,9 @@ Phases (each checked; any failure exits non-zero):
      recipe's head diverges on this trunk); the 4-stage cascade on the 16
      VGA YUV frames (batch wall, survivors per stage, K1 launches per
      launch shape, trunk device ms), counted as the other paths; card
-     against CPU on 1 frame, and the Inception stage's first rows of that
+     against CPU on a 240x320 corner of 1 frame at 128 rows a stage after
+     the first (the whole frame at the default capacities until phase 32
+     came), and the Inception stage's first rows of that
      card run again on the CPU: the trunk's 2048-wide embeddings in bf16
      and in f32 (TF32 off; their row-to-row part too), and the stage's
      logits and probabilities before the threshold; the compact trunk
@@ -256,10 +260,25 @@ Phases (each checked; any failure exits non-zero):
      plain version at every (frames, boxes, window size, frame size) the
      tools launched it at, on the inputs of its first launch there (one
      ``kernels`` entry each, its launches summed over the tools).
+  32. the detectors' bounded pipeline (``inference_pipeline_depth``; frames
+     uploaded from pinned memory without blocking the host, each chunk's
+     rows copied back behind its own work): phase 18's cut flagship on 3
+     chunks of 16 VGA YUV frames at its capacities and operating point
+     (host NMS, K1 counted), and phase 20's 48 px single net on the
+     runtime app's 2 chunks (16 + 4 VGA frames), each warmed and then
+     timed at depths 1, 2, 2, 1: detections equal at every depth; each
+     run's wall and, from CUDA events recorded after each chunk's upload
+     and after its last enqueued operation, the card's gap between chunks
+     (the next chunk's upload included) and each chunk's span.
 
-Phases 19 and 20 run their CPU legs on 1 fold and 2 scenes (2 and 4 until
-phases 26-28 came) and phase 10 on a 256x512 frame at 1.04 (7,936
-windows; 256x320, 13,367, until phase 31 came), to keep the script's time.
+Phases 19 and 20 run their CPU legs on 1 image and 1 scene (2 folds and 4
+scenes until phases 26-28 came, 2 images and 2 scenes until phase 32),
+phase 29's on a 240x320 corner of a frame at 128 rows a stage after the
+first (the whole frame until phase 32), phase 10 on a 256x512 frame at
+1.04 (7,936 windows; 256x320, 13,367, until phase 31 came), phase 9 times
+each batch once (its default batch 3 times until phase 32), and phase
+22b's ladder starts at [2560, 1024] (3 rungs; 5 until phase 32), to keep
+the script's time. Each phase's seconds are printed as "phase N: s".
 
 Kernels against plain versions: at most 1e-4 of the values may differ, each
 by at most 1 (bit-exact is expected); K3's and K2p's outputs must be equal.
@@ -275,7 +294,8 @@ crop-mode bundle; K1 for phase 27's visualizer, once for each dispatch
 shape; K1 at 299 px for phase 29, once for each held shape; K1 and K2 at
 each of phase 30's shard-local launch shapes; K2 at each shape phase 31's
 density sweep launched it at, 12 and 48 px, and K1 at each shape phase
-31's tools launched it at); the line before that is the
+31's tools launched it at; K1 of phase 32's pipelined cascade at phase 18's
+shapes); the line before that is the
 card's name and power limit. Without
 CUDA the script prints a message to stderr and exits 2.
 """
@@ -736,23 +756,17 @@ def phase_k4(torch, device, frames):
     return out
 
 
-def _dense_detect(torch, detector, frames, label, kind, card, repeats=3):
-    """One counted dense detect (launch counts reset just before and read
-    just after), then ``repeats - 1`` more for the median wall."""
+def _dense_detect(torch, detector, frames, label, kind, card):
+    """One counted and timed dense detect (launch counts reset just before
+    and read just after)."""
     _reset_launches()
     detector.redispatches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = _quietly(detector.detect_batch, frames)
-    walls = [time.perf_counter() - t0]
+    wall = time.perf_counter() - t0
     launches = tuple(m.LAUNCHES for m in _kernel_modules()[:3])
     redispatches = detector.redispatches
-    for _ in range(repeats - 1):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _quietly(detector.detect_batch, frames)
-        walls.append(time.perf_counter() - t0)
-    med = statistics.median(walls)
     for r in results:
         assert r.n_windows == DENSE_WINDOWS, r.n_windows
         s = r.n_survivors_per_stage
@@ -763,10 +777,9 @@ def _dense_detect(torch, detector, frames, label, kind, card, repeats=3):
         label, [r.n_survivors_per_stage for r in results],
         [r.reextract_overflows for r in results]))
     print("dense path ({}): launches K1 {} K2 {} K4 {}, saturation re-runs {} in the "
-          "counted batch; {}-frame batch {:.4f} s median of {} = {:.2f} frames/s, host NMS "
-          "with native.available() {}, on {} [{}]".format(
-              label, *launches, redispatches, DENSE_FRAMES, med, [round(x, 4) for x in walls],
-              DENSE_FRAMES / med, _native(), kind, card))
+          "batch; {}-frame batch {:.4f} s = {:.2f} frames/s, host NMS with native.available() "
+          "{}, on {} [{}]".format(label, *launches, redispatches, DENSE_FRAMES, wall,
+                                  DENSE_FRAMES / wall, _native(), kind, card))
     return results, launches
 
 
@@ -804,9 +817,8 @@ def phase_dense_path(torch, device, model, frames, kind, card):
 
     cf.set("dyn_reextract", "on")
     assert cascade.resolve_resample_impl() == "pallas2dyn"
-    # one run: host NMS makes a dense batch take tens of seconds
     dyn, (dk1, dk2, dk4) = _dense_detect(torch, detector, frames, "dyn_reextract on",
-                                         kind, card, repeats=1)
+                                         kind, card)
     assert dk4 >= 1 and dk2 >= 1, (dk1, dk2, dk4)
     for a, b in zip(base, dyn):
         flips, allowed, _, _ = _flips(a, b)
@@ -1692,9 +1704,11 @@ def phase_flagship(torch, device, frames, dense, kind, card):
             "k1_dense": k1_dense, "k2_dense": k2_dense, "k4_dense": k4_dense, "model": model}
 
 FDDB_IMGS_PER_FOLD = 2  # the synthetic 10-fold corpus at its default sizes
-FDDB_CPU_FOLDS = 1  # the folds the CPU runs again (2 until phases 26-28 came)
-# the CPU's scenes were 4 until phases 26-28 came
-RUNTIME_POS, RUNTIME_NEG, RUNTIME_CPU_SCENES = 16, 4, 2
+# the images of fold 1 the CPU runs again (fold 1's 2 until phase 32 came,
+# folds 1-2 until phases 26-28 came)
+FDDB_CPU_IMAGES = 1
+# the CPU's scenes were 4 until phases 26-28 came, 2 until phase 32 came
+RUNTIME_POS, RUNTIME_NEG, RUNTIME_CPU_SCENES = 16, 4, 1
 
 
 @contextlib.contextmanager
@@ -1770,6 +1784,31 @@ def _fddb_settings(cf, work, img_base, folds_dir, name):
     cf.set("nms_opencv_min_neighbors", FLAG_MIN_NEIGHBORS)
 
 
+def _first_images_folds(folds_dir, dst, n):
+    """A folds directory at ``dst`` whose fold 1 holds the first ``n``
+    images of ``folds_dir``'s fold 1: their keys and their ellipse
+    ground truth (key, count, one line a face)."""
+    import os
+
+    os.makedirs(dst)
+    name = "FDDB-fold-01{}.txt"
+    with open(os.path.join(folds_dir, name.format(""))) as f:
+        keys = [line.strip() for line in f if line.strip()][:n]
+    with open(os.path.join(dst, name.format("")), "w") as f:
+        f.write("\n".join(keys) + "\n")
+    with open(os.path.join(folds_dir, name.format("-ellipseList"))) as f:
+        lines = f.read().splitlines()
+    kept, i = [], 0
+    while i < len(lines) and len(kept) < n:
+        count = int(lines[i + 1])
+        kept.append(lines[i : i + 2 + count])
+        i += 2 + count
+    assert [block[0] for block in kept] == keys, (kept, keys)
+    with open(os.path.join(dst, name.format("-ellipseList")), "w") as f:
+        f.write("\n".join(line for block in kept for line in block) + "\n")
+    return dst
+
+
 def _box_set(boxes):
     return {tuple(round(float(v), 3) for v in row) for row in boxes}
 
@@ -1780,7 +1819,7 @@ def phase_fddb(torch, model, corpus_dir, kind, card):
     ``corpus_dir``, which phase 31 reads again) through
     ``EvaluateFDDBApp`` and its forced settings (scale factor 1.005, one
     image a call, corpus-derived resize buckets); then the app again on the
-    CPU over the first 2 folds, fold files compared. Returns the card
+    CPU over fold 1's first image, fold files compared. Returns the card
     run's launches of K2, of K1's re-extraction and of K1's stage 0 at the
     unscheduled size, each with its measurement at that shape."""
     import numpy as np
@@ -1898,41 +1937,42 @@ def phase_fddb(torch, model, corpus_dir, kind, card):
                            {stage0: min(chunk, coords.shape[0])})
             del planes, coords
 
-        # the CPU over the first folds, at capacities from the card's
-        # survivor maxima on those images (x1.1): re-dispatch makes the
-        # result independent of the capacities, the CPU need not repeat the
-        # card's re-runs, and its stage CNNs run on no more rows than needed
-        n_cpu = FDDB_CPU_FOLDS * FDDB_IMGS_PER_FOLD
+        # the CPU over fold 1's first images (a folds directory of their
+        # own), at capacities from the card's survivor maxima on those
+        # images (x1.1): re-dispatch makes the result independent of the
+        # capacities, the CPU need not repeat the card's re-runs, and its
+        # stage CNNs run on no more rows than needed
+        n_cpu = FDDB_CPU_IMAGES
         top = np.max([r.n_survivors_per_stage[:-1] for r in card_results[:n_cpu]], axis=0)
         cpu_caps = [int(-(-int(m * 1.1) // 128) * 128) for m in top]
         cf.set("cascade_capacity_schedule", cpu_caps)
-        _fddb_settings(cf, work, img_base, folds_dir, "cpu")
+        cpu_folds = _first_images_folds(folds_dir, os.path.join(work, "cpu_folds"), n_cpu)
+        _fddb_settings(cf, work, img_base, cpu_folds, "cpu")
         with _captured_results() as got_cpu:
             t0 = time.perf_counter()
             cpu_app = _quietly(lambda: EvaluateFDDBApp(
-                model=model.to("cpu"), n_folds=FDDB_CPU_FOLDS, device="cpu"))
+                model=model.to("cpu"), n_folds=1, device="cpu"))
             cpu_s = time.perf_counter() - t0
         cpu_results = [r for batch in got_cpu for r in batch]
         assert len(cpu_results) == n_cpu
         flips, box_diffs, counts = [], [], []
-        for fold_nr in range(1, FDDB_CPU_FOLDS + 1):
-            card_fold = fddb.parse_fold_results(app.fold_paths[fold_nr - 1])
-            cpu_fold = fddb.parse_fold_results(cpu_app.fold_paths[fold_nr - 1])
-            assert [p[0] for p in cpu_fold] == [p[0] for p in card_fold]
-            for (_, cb, _), (_, gb, _) in zip(cpu_fold, card_fold):
-                box_diffs.append(len(_box_set(cb) ^ _box_set(gb)))
-                counts.append((len(gb), len(cb)))
+        card_fold = fddb.parse_fold_results(app.fold_paths[0])[:n_cpu]
+        cpu_fold = fddb.parse_fold_results(cpu_app.fold_paths[0])
+        assert [p[0] for p in cpu_fold] == [p[0] for p in card_fold]
+        for (_, cb, _), (_, gb, _) in zip(cpu_fold, card_fold):
+            box_diffs.append(len(_box_set(cb) ^ _box_set(gb)))
+            counts.append((len(gb), len(cb)))
         for i, (g, c) in enumerate(zip(card_results[:n_cpu], cpu_results)):
             f, allowed, ids_g, ids_c = _flips(g, c)
             flips.append(len(f))
             assert len(f) <= allowed, (i, len(f), allowed)
             assert abs(counts[i][0] - counts[i][1]) <= len(f), (i, counts[i], len(f))
-        print("FDDB app card vs cpu ({} folds, {} images, bf16, cpu capacities {}): last-stage "
-              "survivor flips per image {} (allowed {:.0%} of the survivors), fold-file boxes "
-              "(card, cpu) {}, fold-file boxes that differ {}; the cpu took {:.2f} s with {} "
-              "re-dispatches".format(
-                  FDDB_CPU_FOLDS, n_cpu, cpu_caps, flips, BORDERLINE_FRACTION, counts,
-                  box_diffs, cpu_s, cpu_app.inference_app.detector.redispatches))
+        print("FDDB app card vs cpu (fold 1's first {} images, bf16, cpu capacities {}): "
+              "last-stage survivor flips per image {} (allowed {:.0%} of the survivors), "
+              "fold-file boxes (card, cpu) {}, fold-file boxes that differ {}; the cpu took "
+              "{:.2f} s with {} re-dispatches".format(
+                  n_cpu, cpu_caps, flips, BORDERLINE_FRACTION, counts, box_diffs, cpu_s,
+                  cpu_app.inference_app.detector.redispatches))
     finally:
         cf.restore(saved)
         shutil.rmtree(work, ignore_errors=True)
@@ -2052,7 +2092,9 @@ def phase_cli(torch, model):
 
 
 DYN_FRAME_COUNTS = (1, 7, 16, 23)  # frames served by one loaded dynamic program
-LADDER_RUNGS = 5  # [640, 256] .. [5061, 4096]: the rungs phase 4's frames climb
+# [2560, 1024] .. [5061, 4096]: the top rungs phase 4's frames climb (from
+# [640, 256], 5 rungs, until phase 32 came)
+LADDER_CAPS, LADDER_RUNGS = [2560, 1024], 3
 CROSS_FRAMES = 2  # the cross-device bundle's CPU leg
 SOAK_FRAMES = 128  # a short soak: 8 batches of the 16 VGA frames, each path
 TRAIN_STEPS = 4  # chained updates a stage in phase 25
@@ -2194,8 +2236,8 @@ def _crop_flagship(torch, model, caps, frames, work, kind, card):
 
 
 def _ladder_walk(torch, device, frames, kind, card):
-    """22b. Random weights at the default capacities through a dynamic
-    bundle whose ladder reaches the rung phase 4's frames end on: the
+    """22b. Random weights from ``LADDER_CAPS`` through a dynamic bundle
+    whose ladder reaches the rung phase 4's frames end on: the
     served batch re-runs each saturated frame alone at each rung, as the
     live detector re-dispatches it, with equal results. Then the same
     programs re-run each frame padded to 16 copies, as a static bundle
@@ -2203,13 +2245,18 @@ def _ladder_walk(torch, device, frames, kind, card):
     from rapidobjectdetectionusingcascadedcnns_torch import serve
     from rapidobjectdetectionusingcascadedcnns_torch.models import cascade
 
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+
     same = _load_tool("serve_torch_bundle_check").same_detections
     model = cascade.build_cascade_model(seed=0, device=device)
-    live_det = cascade.CascadeDetector(model)
+    # the live detector climbs as far as the bundle's ladder: two frames
+    # saturate its top rung, and both truncate them there alike
+    cf.set("cascade_saturation_max_retries", LADDER_RUNGS - 1)
+    live_det = cascade.CascadeDetector(model, capacity_schedule=LADDER_CAPS)
     live = _quietly(live_det.detect_batch_yuv420, frames)
     t0 = time.perf_counter()
     bundle = serve.export_detector(model, IMG_H, IMG_W, batch="dynamic", yuv=True,
-                                   n_rungs=LADDER_RUNGS)
+                                   capacities=LADDER_CAPS, n_rungs=LADDER_RUNGS)
     export_s = time.perf_counter() - t0
     rungs = bundle.meta["capacity_rungs"]
     assert rungs[-1] == OPEN_CAPS, rungs
@@ -2258,7 +2305,6 @@ def phase_dynamic_bundle(torch, device, flagship, frames, work, kind, card):
 
     saved = cf.snapshot()
     try:
-        t0 = time.perf_counter()
         _flagship_settings(cf)
         out = _dynamic_flagship(torch, flagship["model"], flagship["caps"], work["gather"],
                                 kind, card)
@@ -2272,7 +2318,6 @@ def phase_dynamic_bundle(torch, device, flagship, frames, work, kind, card):
         cf.set("window_extraction_mode", "crop")
         out["crop"] = _crop_flagship(torch, flagship["model"], flagship["caps"], frames,
                                      work["crop"], kind, card)
-        print("phase 22: {:.1f} s".format(time.perf_counter() - t0))
     finally:
         cf.restore(saved)
     return out
@@ -2291,7 +2336,6 @@ def phase_cross_device(torch, flagship, dynamic, work, kind, card):
     windows_cuda, windows_sched_cuda, _, nms_cuda = _kernel_modules()
     model = flagship["model"]
     cpu_model = model.to("cpu")
-    t_phase = time.perf_counter()
     for mode, card_results, frames in (
             ("gather", dynamic["served"][N_FRAMES], dynamic["frames"]),
             ("crop", dynamic["crop"]["served"], dynamic["crop"]["frames"])):
@@ -2328,7 +2372,6 @@ def phase_cross_device(torch, flagship, dynamic, work, kind, card):
                 print("cross-device bundle ({} mode): scene out of tolerance".format(mode),
                       json.dumps(sc))
         assert cmp["ok"], (mode, cmp)
-    print("phase 23: {:.1f} s".format(time.perf_counter() - t_phase))
 
 
 def phase_soak(torch, flagship, dynamic, frames, kind, card):
@@ -2695,6 +2738,10 @@ INC_BIG_BOXES = 8192  # one K1 launch of more than 2^31 output values
 INC_TRAIN_STEPS = 10  # synchronised updates of the compact trunk trained end to end
 INC_COMPACT_SAMPLES = 1024  # its corpus: 819 training samples, one batch of 512
 INC_CMP_ROWS = 32  # the Inception stage's rows of the card run held against the CPU
+# the frame corner 29d runs on both devices, and the capacity of its stages
+# after the first (the whole VGA frame at [640, 256, 256] until phase 32
+# came: its CPU run took about 30 s, most of it the trunk on 256 rows)
+INC_CMP_HW, INC_CMP_CAP = (240, 320), 128
 # card against CPU: bf16 embeddings and logits within 2% of each value plus
 # 1% of the largest magnitude (tests/test_torch_inception_training.py's
 # bound for the port's bf16 embeddings against JAX's); f32 embeddings (TF32
@@ -3033,8 +3080,10 @@ def _close(got, ref, rtol, atol):
 
 
 def _inception_card_vs_cpu(torch, model, frames):
-    """29d. One frame on the card and on the CPU, the same model (bf16):
-    survivor flips within the borderline share, the final boxes' deltas.
+    """29d. The top-left ``INC_CMP_HW`` corner of one frame on the card and
+    on the CPU, the same model (bf16) at ``INC_CMP_CAP`` rows a stage after
+    the first: survivor flips within the borderline share, the final
+    boxes' deltas.
     Then the Inception stage's first INC_CMP_ROWS rows of the card run
     (real 299 px windows) again on the CPU: the trunk's embeddings in bf16
     (the detector's pre-cast weights) and in f32 with TF32 off (the
@@ -3044,24 +3093,31 @@ def _inception_card_vs_cpu(torch, model, frames):
     import numpy as np
     from rapidobjectdetectionusingcascadedcnns_torch.models import cascade, cnn, inception
 
+    h, w = INC_CMP_HW
+    y, uv = frames[0]
+    corner = [(np.ascontiguousarray(y[:h, :w]), np.ascontiguousarray(uv[: h // 2, : w // 2]))]
     det = cascade.CascadeDetector(model)
+    caps = cascade.default_capacity_schedule(det._plan_and_table(h, w)[0].n_windows, model.n_nets)
+    caps = caps[:1] + [INC_CMP_CAP] * (len(caps) - 1)
+    det = cascade.CascadeDetector(model, capacity_schedule=caps)
     _reset_launches()
     with _k1_launches_by_shape() as by_shape, _first_inception_rows(INC_CMP_ROWS) as first:
-        gpu = _quietly(det.detect_batch_yuv420, frames[:1])[0]
+        gpu = _quietly(det.detect_batch_yuv420, corner)[0]
     assert sum(by_shape.values()) == _kernel_modules()[0].LAUNCHES, by_shape
     t0 = time.perf_counter()
-    cpu = _quietly(cascade.CascadeDetector(model.to("cpu")).detect_batch_yuv420, frames[:1])[0]
+    cpu = _quietly(cascade.CascadeDetector(model.to("cpu"), capacity_schedule=caps)
+                   .detect_batch_yuv420, corner)[0]
     cpu_s = time.perf_counter() - t0
     flips, allowed, ids_cpu, ids_gpu = _flips(cpu, gpu)
     delta = None
     if len(cpu.boxes) == len(gpu.boxes) and len(cpu.boxes):
         delta = float(np.abs(np.asarray(_sorted_rows(cpu.boxes))
                              - np.asarray(_sorted_rows(gpu.boxes))).max())
-    print("inception card vs cpu (bf16, 1 frame, cpu {:.2f} s): survivors cpu {} gpu {}, flips "
-          "{} (allowed {:.1f}); final boxes cpu {} gpu {}, max |box delta| {}; survivors per "
-          "stage cpu {} gpu {}".format(cpu_s, len(ids_cpu), len(ids_gpu), sorted(flips),
-                                       allowed, len(cpu.boxes), len(gpu.boxes), delta,
-                                       cpu.n_survivors_per_stage, gpu.n_survivors_per_stage))
+    print("inception card vs cpu (bf16, a {}x{} corner of 1 frame, capacities {}, cpu {:.2f} s): "
+          "survivors cpu {} gpu {}, flips {} (allowed {:.1f}); final boxes cpu {} gpu {}, max "
+          "|box delta| {}; survivors per stage cpu {} gpu {}".format(
+              h, w, caps, cpu_s, len(ids_cpu), len(ids_gpu), sorted(flips), allowed, len(cpu.boxes),
+              len(gpu.boxes), delta, cpu.n_survivors_per_stage, gpu.n_survivors_per_stage))
     assert len(flips) <= allowed, flips
 
     cfg, x = first["cfg"], first["x"]
@@ -3212,7 +3268,6 @@ def phase_inception(torch, device, frames, kind, card):
     from rapidobjectdetectionusingcascadedcnns_torch.models import cascade, inception_v3
     from rapidobjectdetectionusingcascadedcnns_torch.ops import windows_cuda
 
-    t_phase = time.perf_counter()
     tool = _load_tool("train_torch_flagship")
     saved = cf.snapshot()
     work = tempfile.mkdtemp(prefix="chip_smoke_v3_")
@@ -3254,7 +3309,6 @@ def phase_inception(torch, device, frames, kind, card):
     finally:
         cf.restore(saved)
         shutil.rmtree(work, ignore_errors=True)
-    print("phase 29: {:.1f} s".format(time.perf_counter() - t_phase))
     return holds
 
 
@@ -3617,7 +3671,6 @@ def phase_meshes(torch, device, flagship, frames, dense, kind, card):
     from rapidobjectdetectionusingcascadedcnns_torch import config as cf
     from rapidobjectdetectionusingcascadedcnns_torch.parallel import mesh as mesh_mod
 
-    t_phase = time.perf_counter()
     saved = cf.snapshot()
     mesh = mesh_mod.get_mesh(devices=(device, device))
     model, caps = flagship["model"], flagship["caps"]
@@ -3674,7 +3727,6 @@ def phase_meshes(torch, device, flagship, frames, dense, kind, card):
         cf.restore(saved)
     print("mesh: unverified on this one-card host: NCCL collectives across two cards, and two "
           "cards' shards overlapping")
-    print("phase 30: {:.1f} s".format(time.perf_counter() - t_phase))
     return holds
 
 GRID = ((0.3, 0.5, 0.7), (0, 1), 20)  # thresholds, min_neighbors, scenes of phase 31's grid
@@ -3768,7 +3820,6 @@ def phase_analysis_tools(torch, flagship, corpus_dir, kind, card):
     from rapidobjectdetectionusingcascadedcnns_torch.models.single import SingleNetDetector
     from rapidobjectdetectionusingcascadedcnns_torch.train import checkpoint
 
-    t_phase = time.perf_counter()
     model, caps = flagship["model"], flagship["caps"]
     points_tool = _load_tool("operating_torch_points")
     sweep_tool = _load_tool("runtime_torch_density_sweep")
@@ -3889,9 +3940,151 @@ def phase_analysis_tools(torch, flagship, corpus_dir, kind, card):
     finally:
         cf.restore(saved)
         shutil.rmtree(work, ignore_errors=True)
-    print("phase 31: {:.1f} s".format(time.perf_counter() - t_phase))
     return holds
 
+
+
+PIPE_CASCADE_FRAMES = 3 * N_FRAMES  # phase 32: 3 chunks of 16 VGA YUV frames
+PIPE_DEPTH_ORDER = (1, 2, 2, 1)  # timed runs of each family, depths in turn
+
+
+@contextlib.contextmanager
+def _chunk_timeline(torch, module, cls, dispatch_name):
+    """CUDA events on the current stream for each chunk a detector
+    dispatches: one after the chunk's frames were uploaded (after its last
+    call of ``module.upload``) and one after its last enqueued operation
+    (when ``cls.dispatch_name`` returns). Yields the list of [uploaded,
+    done] pairs, one a chunk."""
+    marks = []
+    real_upload, real_dispatch = module.upload, getattr(cls, dispatch_name)
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def upload(frames, device):
+        out = real_upload(frames, device)
+        if not marks or marks[-1][1] is not None:
+            marks.append([None, None])
+        marks[-1][0] = event()
+        return out
+
+    def dispatch(*args, **kwargs):
+        out = real_dispatch(*args, **kwargs)
+        marks[-1][1] = event()
+        return out
+
+    module.upload = upload
+    setattr(cls, dispatch_name, dispatch)
+    try:
+        yield marks
+    finally:
+        module.upload = real_upload
+        setattr(cls, dispatch_name, real_dispatch)
+
+
+def _pipelined_runs(torch, label, detect, frames, module, cls, dispatch_name, kind, card):
+    """``detect(frames)`` warmed, then timed at each depth of
+    ``PIPE_DEPTH_ORDER``: the wall (host clock around a synchronised run),
+    the card's gap between one chunk's last operation and the next chunk's
+    frames on the card (its upload included), and each chunk's span.
+    Detections must be equal at every depth. Returns the first timed run's
+    results."""
+    import numpy as np
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+
+    _quietly(detect, frames)  # warm-up
+    first, walls, gaps = None, {}, {}
+    for depth in PIPE_DEPTH_ORDER:
+        cf.set("inference_pipeline_depth", depth)
+        with _chunk_timeline(torch, module, cls, dispatch_name) as marks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = _quietly(detect, frames)
+            wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        chunk_gaps = [a[1].elapsed_time(b[0]) for a, b in zip(marks, marks[1:])]
+        spans = [m[0].elapsed_time(m[1]) for m in marks]
+        walls.setdefault(depth, []).append(wall)
+        gaps.setdefault(depth, []).append(chunk_gaps)
+        print("pipeline ({}, depth {}): {} frames in {} chunks, wall {:.4f} s = {:.2f} frames/s; "
+              "card gap between chunks {} ms; chunk spans {} ms".format(
+                  label, depth, len(frames), len(marks), wall, len(frames) / wall,
+                  [round(g, 4) for g in chunk_gaps], [round(x, 4) for x in spans]))
+        if first is None:
+            first = results
+            continue
+        for a, b in zip(first, results, strict=True):
+            np.testing.assert_array_equal(a.raw_boxes, b.raw_boxes)
+            np.testing.assert_array_equal(a.raw_confidences, b.raw_confidences)
+            np.testing.assert_array_equal(a.boxes, b.boxes)
+            np.testing.assert_array_equal(a.confidences, b.confidences)
+    cf.set("inference_pipeline_depth", 2)
+    print("pipeline ({}): detections equal at depths {}; wall depth 1 {} s, depth 2 {} s; card "
+          "gap sum depth 1 {} ms, depth 2 {} ms; on {} [{}]".format(
+              label, sorted(walls), [round(w, 4) for w in walls[1]],
+              [round(w, 4) for w in walls[2]], [round(sum(g), 4) for g in gaps[1]],
+              [round(sum(g), 4) for g in gaps[2]], kind, card))
+    return first
+
+
+def phase_pipeline(torch, flagship, kind, card):
+    """32. The detectors' bounded pipeline: phase 18's cut flagship on 3
+    chunks of 16 VGA YUV frames at its capacities and operating point
+    (host NMS; K1 counted), and the 48 px single net (conv [32], fc1 512,
+    fresh weights from seed 0, as phase 20 builds it) on the runtime app's
+    2 chunks (16 + 4 VGA frames at scale factor 1.1, threshold 0.5,
+    min_neighbors 1), each at depth 1 and 2. Returns K1's launches on the
+    cascade's first timed run."""
+    import numpy as np
+    from rapidobjectdetectionusingcascadedcnns_torch import config as cf
+    from rapidobjectdetectionusingcascadedcnns_torch.data import synthetic
+    from rapidobjectdetectionusingcascadedcnns_torch.models import cascade, cnn, single
+
+    windows_cuda = _kernel_modules()[0]
+    saved = cf.snapshot()
+    try:
+        _flagship_settings(cf)
+        cf.set("nms_on_device", False)
+        det = cascade.CascadeDetector(flagship["model"], capacity_schedule=flagship["caps"])
+        frames = vga_frames(PIPE_CASCADE_FRAMES)
+        launches = []
+
+        def detect(f):
+            det.redispatches = 0
+            _reset_launches()
+            out = det.detect_batch_yuv420(f)
+            launches.append(windows_cuda.LAUNCHES)
+            return out
+
+        results = _pipelined_runs(torch, "cascade", detect, frames, cascade,
+                                  cascade.CascadeDetector, "_run_chunk", kind, card)
+        k1 = launches[1]  # the first timed run's
+        assert k1 >= 2 * PIPE_CASCADE_FRAMES // N_FRAMES and det.redispatches == 0, (
+            k1, det.redispatches)
+        assert all(r.n_windows == VGA_WINDOWS for r in results)
+
+        cf.restore(saved)
+        for key, value in (("window_scale_factor", 1.1), ("min_window_length", 0.075),
+                           ("foreground_confidence_threshold", 0.5), ("nms", cf.NMS_OPENCV),
+                           ("nms_opencv_min_neighbors", 1), ("conv_filter_sizes", [32]),
+                           ("fc1_size", 512)):
+            cf.set(key, value)
+        scfg = cnn.StageConfig.from_config(48, bottleneck_in_size=None)
+        net = single.SingleNetDetector(
+            cnn.init_stage(scfg, torch.Generator().manual_seed(0)), scfg,
+            np.full((48, 48, 3), 127.5, np.float32), np.full((48, 48, 3), 64.0, np.float32),
+            "cuda")
+        images = [synthetic.make_scene(IMG_H, IMG_W, n_faces=3, seed=s, min_face=48,
+                                       max_face=120).image
+                  for s in range(RUNTIME_POS + RUNTIME_NEG)]
+        results = _pipelined_runs(torch, "single 48 px net", net.detect_batch, images, single,
+                                  single.SingleNetDetector, "_infer", kind, card)
+        assert all(r.n_windows > 0 for r in results)
+    finally:
+        cf.restore(saved)
+    return k1
 
 
 def _kernel_line(name, source, replaces, launches, m):
@@ -3912,6 +4105,14 @@ def _kernel_line(name, source, replaces, launches, m):
         # groupRectangles
         "library_ms": m.get("library_ms"),
     }
+
+
+def _timed(number, phase, *args):
+    """``phase(*args)``, its seconds printed as "phase <number>: <s> s"."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print("phase {}: {:.1f} s".format(number, time.perf_counter() - t0))
+    return out
 
 
 def main() -> int:
@@ -3957,107 +4158,103 @@ def main() -> int:
     model = cascade.build_cascade_model(seed=0, device=device)
     detector = cascade.CascadeDetector(model)
     frames = vga_frames(N_FRAMES)
-    k1_vga = phase_k1(torch, "VGA", *vga_k1_inputs(torch, device, detector, frames),
-                      CAPS_BY_SIZE)
-    k1_vga_launches, host_results = phase_vga_path(torch, detector, frames, kind, card)
-    phase_card_vs_cpu_vga(device, frames)
+    k1_vga = _timed(3, phase_k1, torch, "VGA",
+                    *vga_k1_inputs(torch, device, detector, frames), CAPS_BY_SIZE)
+    k1_vga_launches, host_results = _timed(4, phase_vga_path, torch, detector, frames, kind,
+                                           card)
+    _timed(5, phase_card_vs_cpu_vga, device, frames)
 
     # ---- 6-10. the dense path ----------------------------------------------
     dense = dense_frames(DENSE_FRAMES)
-    k1_dense = phase_k1(torch, "dense", *dense_k1_inputs(torch, device, dense),
-                        DENSE_CAPS_BY_SIZE)
+    k1_dense = _timed(6, phase_k1, torch, "dense", *dense_k1_inputs(torch, device, dense),
+                      DENSE_CAPS_BY_SIZE)
     torch.cuda.empty_cache()
-    k2 = phase_k2(torch, device, dense)
+    k2 = _timed(7, phase_k2, torch, device, dense)
     torch.cuda.empty_cache()
-    k4 = phase_k4(torch, device, dense)
+    k4 = _timed(8, phase_k4, torch, device, dense)
     torch.cuda.empty_cache()
-    k1_dense_launches, k2_launches, k4_launches = phase_dense_path(
-        torch, device, model, dense, kind, card
-    )
-    phase_card_vs_cpu_crop(device)
+    k1_dense_launches, k2_launches, k4_launches = _timed(
+        9, phase_dense_path, torch, device, model, dense, kind, card)
+    _timed(10, phase_card_vs_cpu_crop, device)
     torch.cuda.empty_cache()
 
     # ---- 11-13. the serving path ---------------------------------------------
-    k3 = phase_k3(torch, detector, model, frames, dense)
-    k3_launches = phase_vga_tail(torch, detector, frames, host_results, kind, card)
+    k3 = _timed(11, phase_k3, torch, detector, model, frames, dense)
+    k3_launches = _timed(12, phase_vga_tail, torch, detector, frames, host_results, kind, card)
     torch.cuda.empty_cache()
-    phase_bundle(torch, model, frames, kind, card)
+    _timed(13, phase_bundle, torch, model, frames, kind, card)
     torch.cuda.empty_cache()
 
     # ---- 14. K2p, the profiling tool's path ----------------------------------
     # K2p's yardstick: phase 7's, on the same windows of the same frames
-    k2p_launches, k2p = phase_k2p(torch, device, k2["library_ms"])
+    k2p_launches, k2p = _timed(14, phase_k2p, torch, device, k2["library_ms"])
     torch.cuda.empty_cache()
 
     # ---- 15-17. training -----------------------------------------------------
     del model, detector
     torch.cuda.empty_cache()
-    trained = phase_training(torch, device, kind, card)
-    k1_trained_launches = phase_trained_detection(torch, device, trained, frames, kind, card)
+    trained = _timed(15, phase_training, torch, device, kind, card)
+    k1_trained_launches = _timed(16, phase_trained_detection, torch, device, trained, frames,
+                                 kind, card)
     del trained
     torch.cuda.empty_cache()
-    phase_train_card_vs_cpu(torch, device)
+    _timed(17, phase_train_card_vs_cpu, torch, device)
 
     # ---- 18. the flagship recipe ---------------------------------------------
     torch.cuda.empty_cache()
-    flagship = phase_flagship(torch, device, frames, dense, kind, card)
+    flagship = _timed(18, phase_flagship, torch, device, frames, dense, kind, card)
     torch.cuda.empty_cache()
 
     # ---- 19-21. the evaluation entry points, with the flagship ---------------
     _build.build()  # every library up to date, so the CLI's process builds nothing
     fddb_corpus = tempfile.mkdtemp(prefix="chip_smoke_fddb_corpus_")
-    fddb_app = phase_fddb(torch, flagship["model"], fddb_corpus, kind, card)
+    fddb_app = _timed(19, phase_fddb, torch, flagship["model"], fddb_corpus, kind, card)
     torch.cuda.empty_cache()
-    phase_runtime(torch, flagship["model"], kind, card)
-    phase_cli(torch, flagship["model"])
+    _timed(20, phase_runtime, torch, flagship["model"], kind, card)
+    _timed(21, phase_cli, torch, flagship["model"])
 
     # ---- 22-25. the rest of serving, and a training-step profile ------------
     root = tempfile.mkdtemp(prefix="chip_smoke_bundle_")
     work = {mode: "{}/{}".format(root, mode) for mode in ("gather", "crop")}
     try:
         torch.cuda.empty_cache()
-        dynamic = phase_dynamic_bundle(torch, device, flagship, frames, work, kind, card)
-        phase_cross_device(torch, flagship, dynamic, work, kind, card)
-        t0 = time.perf_counter()
-        phase_soak(torch, flagship, dynamic, frames, kind, card)
-        print("phase 24: {:.1f} s".format(time.perf_counter() - t0))
+        dynamic = _timed(22, phase_dynamic_bundle, torch, device, flagship, frames, work, kind,
+                         card)
+        _timed(23, phase_cross_device, torch, flagship, dynamic, work, kind, card)
+        _timed(24, phase_soak, torch, flagship, dynamic, frames, kind, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    phase_train_profile(torch, device, kind, card)
-    print("phase 25: {:.1f} s".format(time.perf_counter() - t0))
+    _timed(25, phase_train_profile, torch, device, kind, card)
 
     # ---- 26-28. the train, visualizer and tune apps ----------------------------
     apps_work = tempfile.mkdtemp(prefix="chip_smoke_apps_")
     try:
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        trained_app = phase_train_apps(torch, kind, card, apps_work)
-        print("phase 26: {:.1f} s".format(time.perf_counter() - t0))
-        t0 = time.perf_counter()
-        k1_vis = phase_visualizers(torch, kind, card, apps_work, trained_app)
-        print("phase 27: {:.1f} s".format(time.perf_counter() - t0))
-        t0 = time.perf_counter()
-        phase_tune_app(torch, kind, card, apps_work, trained_app)
-        print("phase 28: {:.1f} s".format(time.perf_counter() - t0))
+        trained_app = _timed(26, phase_train_apps, torch, kind, card, apps_work)
+        k1_vis = _timed(27, phase_visualizers, torch, kind, card, apps_work, trained_app)
+        _timed(28, phase_tune_app, torch, kind, card, apps_work, trained_app)
     finally:
         shutil.rmtree(apps_work, ignore_errors=True)
 
     # ---- 29. the appended Inception stage ---------------------------------------
     torch.cuda.empty_cache()
-    k1_inception = phase_inception(torch, device, frames, kind, card)
+    k1_inception = _timed(29, phase_inception, torch, device, frames, kind, card)
 
     # ---- 30. meshes ---------------------------------------------------------------
     torch.cuda.empty_cache()
-    mesh_holds = phase_meshes(torch, device, flagship, frames, dense, kind, card)
+    mesh_holds = _timed(30, phase_meshes, torch, device, flagship, frames, dense, kind, card)
 
     # ---- 31. the analysis tools ------------------------------------------------------
     torch.cuda.empty_cache()
     try:
-        tool_holds = phase_analysis_tools(torch, flagship, fddb_corpus, kind, card)
+        tool_holds = _timed(31, phase_analysis_tools, torch, flagship, fddb_corpus, kind, card)
     finally:
         shutil.rmtree(fddb_corpus, ignore_errors=True)
+
+    # ---- 32. the detectors' bounded pipeline --------------------------------------
+    torch.cuda.empty_cache()
+    k1_pipeline = _timed(32, phase_pipeline, torch, flagship, kind, card)
 
     loaded = sorted(
         m for m in sys.modules
@@ -4083,6 +4280,10 @@ def main() -> int:
                      "resample.cu", "ops/windows_pallas.py:63", k1_trained_launches, k1_vga),
         _kernel_line("K1 crop_and_resize (flagship, VGA path re-extraction at {})".format(
             flagship["caps"]), "resample.cu", "ops/windows_pallas.py:63", *flagship["k1"]),
+        _kernel_line("K1 crop_and_resize (flagship, pipelined VGA path, {} frames in chunks of "
+                     "{}; measured at phase 18's 16-frame shapes)".format(
+                         PIPE_CASCADE_FRAMES, N_FRAMES), "resample.cu",
+                     "ops/windows_pallas.py:63", k1_pipeline, flagship["k1"][1]),
         _kernel_line("K3 groupRectangles clustering (flagship, VGA device NMS tail, N={})".format(
             flagship["caps"][-1]), "cluster.cu", "ops/nms_pallas.py:33", *flagship["k3"]),
         _kernel_line("K1 crop_and_resize (flagship, dense path re-extraction)", "resample.cu",

@@ -57,7 +57,7 @@ from ..ops.pyramid import PyramidPlan, build_plan, window_table
 from ..ops.windows import crop_and_resize_impl, extract_windows, level_indices, to_planes_bf16
 from ..parallel import mesh as mesh_mod
 from ..utils import log
-from ..utils.device import resolve_device, set_numerics
+from ..utils.device import resolve_device, set_numerics, upload
 from . import cnn
 
 
@@ -163,6 +163,48 @@ def climb_ladder(result, rung, ladder, rerun, saturated):
             break
         rung, result = nxt, rerun(nxt)
     return result, rung
+
+
+def read_back_pipelined(idxs: Sequence[int], dispatch) -> List[Tuple[List[int], np.ndarray]]:
+    """The bounded software pipeline of both detectors (JAX
+    ``CascadeDetector.detect_batch`` and ``SingleNetDetector.detect_batch``):
+    ``idxs`` in chunks of ``inference_batch_frames``, each given to
+    ``dispatch``, which uploads and enqueues it and returns its packed rows
+    on the device; once more than ``inference_pipeline_depth`` chunks are
+    pending, the oldest is read back. Returns every chunk with its rows on
+    the host, in order, so the caller decodes only after the last
+    dispatch."""
+    step = int(cf.get("inference_batch_frames"))
+    depth = max(1, int(cf.get("inference_pipeline_depth")))
+    pending, done = [], []
+    for s in range(0, len(idxs), step):
+        chunk = idxs[s : s + step]
+        pending.append((chunk, *_copy_to_host(dispatch(chunk))))
+        if len(pending) > depth:
+            done.append(_read_back(*pending.pop(0)))
+    done.extend(_read_back(*p) for p in pending)
+    return done
+
+
+def _copy_to_host(rows: torch.Tensor):
+    """Enqueue the copy of a chunk's rows to (pinned) host memory right
+    behind the work that made them: (host tensor, the CUDA event that marks
+    the copy done, or None for rows on the CPU). Reading the chunk back
+    then waits for it alone, as ``np.asarray`` of one array does in the JAX
+    package; a ``.cpu()`` at read time would queue behind every chunk
+    enqueued since."""
+    if rows.device.type != "cuda":
+        return rows, None
+    host = rows.to("cpu", non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record(torch.cuda.current_stream(rows.device))
+    return host, copied
+
+
+def _read_back(chunk, host, copied):
+    if copied is not None:
+        copied.synchronize()
+    return chunk, host.numpy()
 
 
 def resolve_extraction_mode(plan: PyramidPlan) -> str:
@@ -610,16 +652,6 @@ def pack_result(window_ids, conf, alive, diagnostics, *nms_tail) -> torch.Tensor
     return torch.cat(parts, dim=1)
 
 
-def _stack_frames(frames: Sequence, device: torch.device) -> torch.Tensor:
-    """One batch tensor on ``device`` of host frames (numpy arrays,
-    uploaded) or of frames already staged on the card (tensors, stacked
-    there), so that a caller that stages its frames keeps the upload out of
-    what it times."""
-    if torch.is_tensor(frames[0]):
-        return torch.stack(list(frames)).to(device)
-    return torch.as_tensor(np.stack(frames), device=device)
-
-
 class CascadeDetector:
     """Host orchestration around :func:`cascade_core`.
 
@@ -752,7 +784,7 @@ class CascadeDetector:
 
     def _run_chunk(self, frames: Sequence, yuv: bool, caps, entry, resample: Optional[str]):
         """Upload one chunk of frames (host arrays; or tensors already on
-        the card, which :func:`_stack_frames` stacks there) and enqueue its
+        the card, which :func:`upload` stacks there) and enqueue its
         cascade; returns the packed (B, row) tensor on the device (not yet
         synchronised).
         ``resample`` overrides the configured kernels (the K1 re-run after
@@ -780,11 +812,11 @@ class CascadeDetector:
         n_stages = self.model.n_nets
         with mesh_mod.on_device(device):
             if yuv:
-                y = _stack_frames([f[0] for f in frames], device)
-                uv = _stack_frames([f[1] for f in frames], device)
+                y = upload([f[0] for f in frames], device)
+                uv = upload([f[1] for f in frames], device)
                 images = yuv420_to_rgb(y, uv)
             else:
-                images = _stack_frames(frames, device).float()
+                images = upload(frames, device).float()
             out = cascade_core(
                 images,
                 coords_norm,
@@ -809,11 +841,10 @@ class CascadeDetector:
 
     def _detect_batch_exact(self, images: Sequence, yuv: bool = False) -> List[DetectionResult]:
         """Same-size frames go through one batched cascade per chunk of
-        ``inference_batch_frames``; up to ``inference_pipeline_depth`` chunks
-        are enqueued before the oldest is read back."""
+        ``inference_batch_frames``, pipelined by :func:`read_back_pipelined`;
+        rows are decoded (saturation re-dispatch, host NMS) once every chunk
+        of a size is read back."""
         resolve_resample_impl()  # refuse an unported choice before any upload
-        max_frames = int(cf.get("inference_batch_frames"))
-        depth = max(1, int(cf.get("inference_pipeline_depth")))
         results: List[Optional[DetectionResult]] = [None] * len(images)
 
         by_size: Dict[Tuple[int, int], List[int]] = {}
@@ -834,18 +865,8 @@ class CascadeDetector:
             def run(frames, caps, resample=None):
                 return self._run_chunk(frames, yuv, caps, entry, resample)
 
-            pending, done = [], []
-            for s in range(0, len(idxs), max_frames):
-                chunk = idxs[s : s + max_frames]
-                pending.append((chunk, run([images[i] for i in chunk], capacities)))
-                if len(pending) > depth:
-                    c, r = pending.pop(0)
-                    done.append((c, r.cpu().numpy()))
-            while pending:
-                c, r = pending.pop(0)
-                done.append((c, r.cpu().numpy()))
-
-            for chunk, packed in done:
+            for chunk, packed in read_back_pipelined(
+                    idxs, lambda chunk: run([images[i] for i in chunk], capacities)):
                 for j, i in enumerate(chunk):
                     row, caps = packed[j], capacities
                     if self._row_saturated(row, caps, plan):

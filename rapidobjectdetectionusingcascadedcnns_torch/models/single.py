@@ -20,13 +20,14 @@ import torch
 from .. import config as cf
 from ..ops.pyramid import build_plan, window_table
 from ..serve import postprocess_raw
-from ..utils.device import resolve_device, set_numerics
+from ..utils.device import resolve_device, set_numerics, upload
 from . import cnn
 from .cascade import (
     DetectionResult,
     _apply_stage_rows,
     _stage0_apply,
     _stage0_schedule,
+    read_back_pipelined,
     resolve_extraction_mode,
     resolve_resample_impl,
 )
@@ -75,8 +76,9 @@ class SingleNetDetector:
 
     def detect_batch(self, images: Sequence[np.ndarray]) -> List[DetectionResult]:
         """Same-size frames go through stage 0 together, in chunks of
-        ``inference_batch_frames``."""
-        max_frames = int(cf.get("inference_batch_frames"))
+        ``inference_batch_frames`` pipelined as the cascade's
+        (:func:`~.cascade.read_back_pipelined`): every chunk of a size is
+        enqueued and read back before the first host NMS."""
         results: List[Optional[DetectionResult]] = [None] * len(images)
         by_size: Dict[Tuple[int, int], List[int]] = {}
         for i, img in enumerate(images):
@@ -87,13 +89,13 @@ class SingleNetDetector:
             if plan.n_windows < 1:
                 raise ValueError("Could not extract any windows from the given image")
             sched = self._schedule(plan)
-            for s in range(0, len(idxs), max_frames):
-                batch = idxs[s : s + max_frames]
-                frames = torch.as_tensor(
-                    np.stack([images[i] for i in batch]), device=self.device
-                )
-                packed = self._infer(frames, plan, boxes_float).cpu().numpy()
-                for j, i in enumerate(batch):
+
+            def dispatch(chunk):
+                frames = upload([images[i] for i in chunk], self.device)
+                return self._infer(frames, plan, boxes_float)
+
+            for chunk, packed in read_back_pipelined(idxs, dispatch):
+                for j, i in enumerate(chunk):
                     results[i] = self._unpack_row(packed[j], plan, table, sched)
         return results  # type: ignore[return-value]
 

@@ -34,6 +34,7 @@ import torch
 from .. import config as cf
 from ..models import cascade as casc
 from ..ops.windows import extract_windows, to_planes_bf16
+from ..utils.device import upload
 from . import mesh as mesh_mod
 
 
@@ -172,7 +173,7 @@ def detect_window_sharded(detector: "casc.CascadeDetector", image: np.ndarray,
     high_precision = bool(cf.get("inference_high_precision"))
     chunk = int(cf.get("inference_chunk_size"))
     coords_norm, boxes_float, indices = detector._tables_on(entry, mesh[0], mode)
-    copies = {d: torch.as_tensor(image, device=d).float()[None] for d in mesh.distinct}
+    copies = {d: upload([image], d).float() for d in mesh.distinct}
     frames = [copies[d] for d in mesh]
     planes = {d: None if high_precision else to_planes_bf16(copies[d]) for d in mesh.distinct}
     shards = list(zip(

@@ -73,7 +73,7 @@ from .ops.windows import extract_windows, level_indices, to_planes_bf16
 from .parallel import mesh as mesh_mod
 from .parallel import window_shard
 from .utils import log
-from .utils.device import resolve_device, set_numerics
+from .utils.device import resolve_device, set_numerics, upload
 
 FORMAT_VERSION = 2  # 2: dynamic batches, platforms and the export device
 PROGRAM_FORMAT = "torch.export"
@@ -811,16 +811,13 @@ class ServingDetector:
         for (modules, weights), device, rows in zip(
             self._shards, self.mesh, mesh_mod.split_rows(len(frames), self.mesh)
         ):
-            def upload(arrays):
-                return torch.as_tensor(np.stack(arrays), device=device)
-
             with mesh_mod.on_device(device):
                 if self.meta["yuv"]:
-                    y = upload([f[0] for f in frames[rows]])
-                    uv = upload([f[1] for f in frames[rows]])
+                    y = upload([f[0] for f in frames[rows]], device)
+                    uv = upload([f[1] for f in frames[rows]], device)
                     parts.append(modules[rung](y, uv, weights))
                 else:
-                    parts.append(modules[rung](upload(frames[rows]), weights))
+                    parts.append(modules[rung](upload(frames[rows], device), weights))
         return mesh_mod.gather(self.mesh, parts)
 
     def _unpack(self, row: np.ndarray, rung: int) -> DetectionResult:

@@ -9,8 +9,9 @@ CPU, so a run never reports CPU numbers under a GPU's name.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 
@@ -25,6 +26,26 @@ def resolve_device(name: Optional[Union[str, torch.device]] = None) -> torch.dev
             )
         )
     return device
+
+
+def upload(frames: Sequence, device: torch.device) -> torch.Tensor:
+    """One batch tensor on ``device`` of host frames (numpy arrays) or of
+    frames already on the card (tensors, stacked there, so that a caller
+    that stages its frames keeps the upload out of what it times).
+
+    To a card, host frames are stacked into pinned memory and copied with
+    ``non_blocking=True`` on the current stream, so the host goes on
+    enqueueing while the copy runs, as ``jnp.asarray`` returns at once in
+    the JAX package; a copy from pageable memory would wait for the stream
+    to drain. The pinned block comes from PyTorch's caching host
+    allocator, which records the copy's event and reuses the block only
+    after it. To the CPU the stack is used as it is."""
+    if torch.is_tensor(frames[0]):
+        return torch.stack(list(frames)).to(device)
+    stacked = torch.from_numpy(np.stack(frames))
+    if device.type == "cuda":
+        return stacked.pin_memory().to(device, non_blocking=True)
+    return stacked.to(device)
 
 
 def set_numerics(compute_dtype: torch.dtype) -> None:

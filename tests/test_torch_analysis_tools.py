@@ -26,13 +26,18 @@ set alike (``torch_parity.configure``: conv [4], fc1 8, f32):
     ``default_capacity_schedule`` and the window chunk; every new tool
     refuses to run without a card unless asked for the CPU.
 
-The cascade pair and the single net are built once for the module.
+The cascade pair and the single net are built once for the module. The
+JAX references of the single net and the grid are computed once, each in
+a process of its own (``torch_parity.Reference``) started with the
+module's first test, and the density sweep's test (port only) comes first,
+so that the port's side and the JAX bucketing overlap them.
 """
 
 import contextlib
 import functools
 import json
 import os
+import pathlib
 import sys
 
 import jax
@@ -81,6 +86,7 @@ CONF_TOL = 1e-5
 # capacities above every survivor count of the runs below, and no higher:
 # the stages after the first run on the whole capacity
 GRID_CFG = {"cascade_capacity_schedule": [384, 128]}
+GRID_POINTS = ((0.55, 0.6), (0, 1))  # the grid's thresholds and min_neighbors
 FDDB_CFG = {"cascade_capacity_schedule": [512, 256]}
 FDDB_SCALE = 1.3
 FDDB_SIZES = ((200, 280),)  # one frame size: the JAX side compiles one program
@@ -103,6 +109,70 @@ def _configured():
         tcf.reset()
 
 
+def _single48_params():
+    """(JAX params, config, mean, std) of the 48 px single net, from the
+    JAX initializer."""
+    scfg = jcnn.StageConfig.from_config(48, bottleneck_in_size=None)
+    params = jax.tree_util.tree_map(np.asarray, jcnn.init_stage(jax.random.PRNGKey(0), scfg))
+    return params, scfg, np.full((48, 48, 3), 127.5, np.float32), np.full((48, 48, 3), 64.0,
+                                                                           np.float32)
+
+
+def _single48_scene():
+    return synthetic.make_scene(*FRAME, 2, seed=5, min_face=40, max_face=100).image
+
+
+def _single48_config():
+    tp.configure(window_scale_factor=1.02, min_window_length=0.075,
+                 inference_chunk_size=tsweep.single_window_chunk(48))
+
+
+def _jax_points(model, work):
+    """The JAX grid tool's points file for the test's grid (2 thresholds x
+    2 min_neighbors over 2 scenes), written into ``work``."""
+    with pytest.MonkeyPatch.context() as monkeypatch:
+        _no_jit_cache(monkeypatch, pathlib.Path(work))
+        monkeypatch.setattr(jpoints, "THRESHOLDS", GRID_POINTS[0])
+        monkeypatch.setattr(jpoints, "MIN_NEIGHBORS", GRID_POINTS[1])
+        monkeypatch.setattr(jflagship, "ARTIFACT_DIR", str(work))
+        monkeypatch.setattr(jflagship, "load_flagship", lambda: model)
+        monkeypatch.setattr(jflagship, "evaluate_on_scenes",
+                            functools.partial(jflagship.evaluate_on_scenes, n_scenes=2))
+        jpoints.main()
+    with open(os.path.join(str(work), "flagship_operating_points.json")) as f:
+        return json.load(f)
+
+
+def _jax_reference(name, work):
+    """The JAX side of one test (``single48`` or ``points``) from both
+    configurations' defaults, working under ``work`` (run by
+    ``torch_parity.Reference``)."""
+    with _configured():
+        if name == "single48":
+            params, scfg, mean, std = _single48_params()
+            _single48_config()
+            jcf.set("use_pallas_resample", "pallas2")  # the JAX K2, interpreted on the CPU
+            ref = jsingle.SingleNetDetector(params, scfg, mean, std).detect(_single48_scene())
+            return {k: getattr(ref, k) for k in ("n_windows", "raw_boxes", "raw_confidences")}
+        model = tp.jax_and_port_models(seed=0)[0]
+        tp.configure(**GRID_CFG)
+        return _jax_points(model, work)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_reference(tmp_path_factory):
+    """Starts the JAX references, one process each, with the module's
+    first test; yields a function that waits for one by name."""
+    jobs = {}
+    for name in ("single48", "points"):
+        work = tmp_path_factory.mktemp("jax_" + name)
+        jobs[name] = tp.Reference(work, "test_torch_analysis_tools", "_jax_reference", name,
+                                  str(work))
+    yield lambda name: jobs[name].result()
+    for job in jobs.values():
+        job.close()
+
+
 @pytest.fixture(scope="module")
 def models():
     """The JAX cascade (conv [4], fc1 8, f32) and its converted port copy."""
@@ -115,11 +185,7 @@ def single48():
     """A 48 px single net from the JAX initializer: (JAX params, config,
     mean, std) and the port's detector on the CPU."""
     with _configured():
-        scfg = jcnn.StageConfig.from_config(48, bottleneck_in_size=None)
-        params = jax.tree_util.tree_map(
-            np.asarray, jcnn.init_stage(jax.random.PRNGKey(0), scfg))
-        mean = np.full((48, 48, 3), 127.5, np.float32)
-        std = np.full((48, 48, 3), 64.0, np.float32)
+        params, scfg, mean, std = _single48_params()
         port = tsingle.SingleNetDetector(
             bridge.params_from_numpy(params, device="cpu"), bridge.stage_config_from_jax(scfg),
             mean, std, device="cpu",
@@ -133,12 +199,40 @@ def _no_jit_cache(monkeypatch, tmp_path):
     monkeypatch.setattr(jax.config, "update", lambda *args: None)
 
 
-def test_single48_crop_mode_matches_jax(single48):
-    chunk = tsweep.single_window_chunk(48)
-    assert chunk == 1024
-    tp.configure(window_scale_factor=1.02, min_window_length=0.075,
-                 inference_chunk_size=chunk)
-    jcf.set("use_pallas_resample", "pallas2")  # the JAX K2, interpreted on the CPU
+def test_density_sweep_geometry_matches_jax(models, single48):
+    tp.configure()
+    jmodel, tmodel = models
+    _, single = single48
+    batches = {1.1: (1, 1, 1), 1.02: (1, 1, 1)}
+    sweep = tsweep.density_sweep(tmodel, single, 0.5, sizes=[FRAME], densities=(1.1, 1.02),
+                                 reps=1, batches=batches)
+    chunk = max(512, int(jcf.get("inference_chunk_size") * (12 / 48) ** 2))
+    for wsf in (1.1, 1.02):
+        entry = sweep["{}x{}@wsf{}".format(*FRAME, wsf)]
+        plan = jpyramid.build_plan(*FRAME, 12, 12, 0.075, wsf)
+        splan = jpyramid.build_plan(*FRAME, 48, 48, 0.075, wsf)
+        assert entry["cascade"]["n_windows"] == plan.n_windows
+        assert entry["cascade"]["capacities"] == jcascade.default_capacity_schedule(
+            plan.n_windows, jmodel.n_nets)
+        assert entry["single"]["n_windows"] == splan.n_windows
+        assert entry["single"]["window_chunk"] == chunk == 1024
+        sched = jwindows_sched.schedule_for_plan(splan, 48, 48) if splan.n_scales > 48 else None
+        assert entry["single"]["n_slots"] == (len(sched.ids) if sched else splan.n_windows)
+        assert entry["single"]["extraction_mode"] == ("crop" if sched else "gather")
+        for family in ("cascade", "single"):
+            assert entry[family]["fps"] > 0 and len(entry[family]["rates"]) == 1
+        assert len(entry["cascade"]["survivors_max"]) == 3
+    assert sweep["128x256@wsf1.02"]["single"]["n_slots"] == 1880
+
+    if not torch.cuda.is_available():  # each tool's default device is the card
+        for tool in (troc, tpoints, tbucketing, tsweep, profile_torch_batch, profile_torch_cnn):
+            with pytest.raises(RuntimeError, match="cuda"):
+                tool.main([])
+
+
+def test_single48_crop_mode_matches_jax(single48, jax_reference):
+    assert tsweep.single_window_chunk(48) == 1024
+    _single48_config()
     plans = [p.build_plan(*FRAME, 48, 48, 0.075, 1.02) for p in (jpyramid, tpyramid)]
     jsched = jwindows_sched.schedule_for_plan(plans[0], 48, 48)
     tsched = twindows_sched.schedule_for_plan(plans[1], 48, 48)
@@ -147,13 +241,12 @@ def test_single48_crop_mode_matches_jax(single48):
     np.testing.assert_array_equal(tsched.ids, jsched.ids)
     np.testing.assert_array_equal(tsched.valid, jsched.valid)
 
-    (params, scfg, mean, std), port = single48
-    img = synthetic.make_scene(*FRAME, 2, seed=5, min_face=40, max_face=100).image
-    ref = jsingle.SingleNetDetector(params, scfg, mean, std).detect(img)
+    _, port = single48
     assert port._schedule(plans[1]) is not None  # crop mode through K2
-    got = port.detect(img)
-    assert got.n_windows == ref.n_windows == 1866
-    conf_ref = dict(zip(map(tuple, ref.raw_boxes.tolist()), ref.raw_confidences.tolist()))
+    got = port.detect(_single48_scene())
+    ref = jax_reference("single48")
+    assert got.n_windows == ref["n_windows"] == 1866
+    conf_ref = dict(zip(map(tuple, ref["raw_boxes"].tolist()), ref["raw_confidences"].tolist()))
     conf_got = dict(zip(map(tuple, got.raw_boxes.tolist()), got.raw_confidences.tolist()))
     assert len(conf_ref) > 100
     assert len(set(conf_ref) ^ set(conf_got)) <= tp.MAX_FLIP_FRACTION * len(conf_ref)
@@ -220,25 +313,13 @@ CRAFTED_POINTS = [
 ]
 
 
-def test_operating_points_match_jax(models, monkeypatch, tmp_path):
-    thresholds, min_neighbors = (0.55, 0.6), (0, 1)
+def test_operating_points_match_jax(models, jax_reference, monkeypatch, tmp_path):
     tp.configure(**GRID_CFG)
     jmodel, tmodel = models
-    _no_jit_cache(monkeypatch, tmp_path)
-    monkeypatch.setattr(jpoints, "THRESHOLDS", thresholds)
-    monkeypatch.setattr(jpoints, "MIN_NEIGHBORS", min_neighbors)
-    monkeypatch.setattr(jflagship, "ARTIFACT_DIR", str(tmp_path))
-    monkeypatch.setattr(jflagship, "load_flagship", lambda: jmodel)
-    evaluate = jflagship.evaluate_on_scenes
-    monkeypatch.setattr(jflagship, "evaluate_on_scenes",
-                        functools.partial(evaluate, n_scenes=2))
-    jpoints.main()
-    with open(tmp_path / "flagship_operating_points.json") as f:
-        ref = json.load(f)
-
     tflagship.flagship_config(tcf)
     tflagship.apply_recorded_overrides(tcf)
-    got = tpoints.operating_points(tmodel, thresholds, min_neighbors, n_scenes=2)
+    got = tpoints.operating_points(tmodel, *GRID_POINTS, n_scenes=2)
+    ref = jax_reference("points")
     assert [(p["threshold"], p["min_neighbors"]) for p in got["points"]] == [
         (p["threshold"], p["min_neighbors"]) for p in ref["points"]]
     for g, r in zip(got["points"], ref["points"]):
@@ -246,6 +327,9 @@ def test_operating_points_match_jax(models, monkeypatch, tmp_path):
             r["recall"], r["false_pos_per_scene"], r["n_faces"])
     assert got["headline"] == ref["headline"]
 
+    _no_jit_cache(monkeypatch, tmp_path)
+    monkeypatch.setattr(jflagship, "ARTIFACT_DIR", str(tmp_path))
+    monkeypatch.setattr(jflagship, "load_flagship", lambda: jmodel)
     for points in CRAFTED_POINTS:  # the JAX rule on points chosen to test it
         replay = iter(points)
         monkeypatch.setattr(jflagship, "evaluate_on_scenes",
@@ -325,34 +409,3 @@ def test_roc_options_map_as_in_jax(monkeypatch, tmp_path):
                        name if "out" in args else name.replace("torch_", ""),
                        troc.corpus_ready(corpus_dir))
                 assert got == ref, (argv, corpus_dir, quality)
-
-
-def test_density_sweep_geometry_matches_jax(models, single48):
-    tp.configure()
-    jmodel, tmodel = models
-    _, single = single48
-    batches = {1.1: (1, 1, 1), 1.02: (1, 1, 1)}
-    sweep = tsweep.density_sweep(tmodel, single, 0.5, sizes=[FRAME], densities=(1.1, 1.02),
-                                 reps=1, batches=batches)
-    chunk = max(512, int(jcf.get("inference_chunk_size") * (12 / 48) ** 2))
-    for wsf in (1.1, 1.02):
-        entry = sweep["{}x{}@wsf{}".format(*FRAME, wsf)]
-        plan = jpyramid.build_plan(*FRAME, 12, 12, 0.075, wsf)
-        splan = jpyramid.build_plan(*FRAME, 48, 48, 0.075, wsf)
-        assert entry["cascade"]["n_windows"] == plan.n_windows
-        assert entry["cascade"]["capacities"] == jcascade.default_capacity_schedule(
-            plan.n_windows, jmodel.n_nets)
-        assert entry["single"]["n_windows"] == splan.n_windows
-        assert entry["single"]["window_chunk"] == chunk == 1024
-        sched = jwindows_sched.schedule_for_plan(splan, 48, 48) if splan.n_scales > 48 else None
-        assert entry["single"]["n_slots"] == (len(sched.ids) if sched else splan.n_windows)
-        assert entry["single"]["extraction_mode"] == ("crop" if sched else "gather")
-        for family in ("cascade", "single"):
-            assert entry[family]["fps"] > 0 and len(entry[family]["rates"]) == 1
-        assert len(entry["cascade"]["survivors_max"]) == 3
-    assert sweep["128x256@wsf1.02"]["single"]["n_slots"] == 1880
-
-    if not torch.cuda.is_available():  # each tool's default device is the card
-        for tool in (troc, tpoints, tbucketing, tsweep, profile_torch_batch, profile_torch_cnn):
-            with pytest.raises(RuntimeError, match="cuda"):
-                tool.main([])

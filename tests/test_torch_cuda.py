@@ -92,11 +92,14 @@ def test_wrapper_on_card_equals_plain_on_cpu(card):
     _assert_equalish(got.cpu(), ref)
 
 
-def test_k2_matches_plain(card):
+@pytest.mark.parametrize("size", [12, 48])
+def test_k2_matches_plain(card, size):
     """K2 on every slot of a 192x256 plan's schedule, two frames, against
-    its plain version on the card; real slots also equal K1 reordered."""
-    plan = pyramid.build_plan(192, 256, 12, 12, 0.075, 1.05)
-    sched = windows_sched.schedule_for_plan(plan, 12, 12)
+    its plain version on the card; real slots also equal K1 reordered. At
+    48 px (the single net's crop-mode stage 0) tiles of 8 windows, most
+    of them over the staging budget."""
+    plan = pyramid.build_plan(192, 256, size, size, 0.075, 1.05)
+    sched = windows_sched.schedule_for_plan(plan, size, size)
     boxes = torch.as_tensor(pyramid.window_table(plan)["boxes_float"], device=card)
     rng = np.random.RandomState(2)
     images = torch.from_numpy((rng.rand(2, 192, 256, 3) * 255).astype(np.float32)).to(card)
@@ -110,7 +113,7 @@ def test_k2_matches_plain(card):
     assert got.dtype == torch.bfloat16 and got.shape == ref.shape
     _assert_equalish(got, ref)
     ordered = windows_sched.extract_scheduled(images, boxes, sched, reorder=True)
-    k1 = windows_cuda.crop_and_resize(images, boxes.expand(2, -1, 4), 12, 12)
+    k1 = windows_cuda.crop_and_resize(images, boxes.expand(2, -1, 4), size, size)
     _assert_equalish(ordered, k1)
 
 
@@ -495,3 +498,55 @@ def test_train_step_on_card_matches_cpu(card):
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5)
     for g, r in zip(runs["cuda"][1], runs["cpu"][1]):
         np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-5)
+
+
+def test_upload_pins_and_copies(card, monkeypatch):
+    """Host frames go to the card through one pinned stack (spied on
+    ``pin_memory``) and a copy on the current stream: after a synchronize
+    the card's tensor equals ``np.stack``. Frames already on the card are
+    stacked there, with nothing pinned."""
+    from rapidobjectdetectionusingcascadedcnns_torch.utils.device import upload
+
+    pinned = []
+    pin = torch.Tensor.pin_memory
+
+    def spy(self, *args, **kwargs):
+        out = pin(self, *args, **kwargs)
+        pinned.append(out)
+        return out
+
+    monkeypatch.setattr(torch.Tensor, "pin_memory", spy)
+    rng = np.random.RandomState(4)
+    frames = [rng.randint(0, 256, (480, 640, 3)).astype(np.uint8) for _ in range(4)]
+    got = upload(frames, card)
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    assert len(pinned) == 1 and pinned[0].is_pinned()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), np.stack(frames))
+    staged = upload([torch.from_numpy(f).to(card) for f in frames], card)
+    assert len(pinned) == 1
+    torch.testing.assert_close(staged, got, rtol=0, atol=0)
+
+
+def test_pipeline_depths_agree_on_card(card):
+    """The cascade's YUV420 path over 5 frames in chunks of 2 (3 chunks):
+    at depth 1 and 2, the same detections (the same programs on the same
+    bytes), and each chunk's rows read back from pinned memory once its
+    own copy is done."""
+    from rapidobjectdetectionusingcascadedcnns_torch.ops.color import rgb_to_yuv420
+
+    cf.set("conv_filter_sizes", [8])
+    cf.set("fc1_size", 32)
+    cf.set("inference_batch_frames", 2)
+    model = cascade.build_cascade_model(seed=0, device=card)
+    detector = cascade.CascadeDetector(model)
+    frames = [rgb_to_yuv420(synthetic.make_scene(120, 160, 1, seed=s, min_face=30,
+                                                 max_face=50).image) for s in range(5)]
+    runs = []
+    for depth in (1, 2):
+        cf.set("inference_pipeline_depth", depth)
+        runs.append(detector.detect_batch_yuv420(frames))
+    for a, b in zip(*runs, strict=True):
+        np.testing.assert_array_equal(a.raw_window_ids, b.raw_window_ids)
+        np.testing.assert_array_equal(a.raw_confidences, b.raw_confidences)
+        np.testing.assert_array_equal(a.boxes, b.boxes)

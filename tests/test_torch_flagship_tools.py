@@ -17,7 +17,11 @@ survivor count, so no frame is re-dispatched):
   * the sweep's ``operating_sweep`` chooses and its ``rank_key`` orders
     candidates as the JAX sweep does.
 
-The JAX references are computed once for the module.
+The JAX references are computed once for the module: the evaluation (the
+longest, its stage probes run eagerly) in a process of its own
+(``torch_parity.Reference``) started with the module's first test, the
+mining here; the mining tests come first, so that both packages' mining
+and the port's evaluation overlap the JAX evaluation.
 """
 
 import copy
@@ -32,6 +36,7 @@ import torch
 from rapidobjectdetectionusingcascadedcnns_tpu import config as jcf
 from rapidobjectdetectionusingcascadedcnns_torch import config as tcf
 
+import torch_parity as tp
 from torch_parity import configure, jax_and_port_models, reset_port_config  # noqa: F401
 
 torch.set_num_threads(2)
@@ -69,27 +74,28 @@ def _jax_sweep(monkeypatch, tmp_path):
     return module
 
 
-def _run_tools(tools, model):
-    """(eval stats, mined negatives, (mined positives, misses)) of one
-    package's tools on ``model``."""
-    flagship, neg, pos = tools
-    stats = flagship.evaluate_on_scenes(model, n_scenes=N_SCENES, threshold=THRESHOLD,
-                                        min_neighbors=0, miss_analysis=True)
-    negatives = neg.mine(model, n_scenes=N_SCENES, threshold=THRESHOLD)
-    positives = pos.mine(model, n_scenes=N_SCENES, threshold=THRESHOLD)
-    return stats, negatives, positives
-
-
 @pytest.fixture(scope="module")
 def models():
     configure(**CFG)
     return jax_and_port_models(seed=0)
 
 
-@pytest.fixture(scope="module")
-def jax_reference(models):
+def _jax_evaluation():
+    """The JAX tool's evaluation of the JAX cascade, from both
+    configurations' defaults (run by ``torch_parity.Reference``)."""
     configure(**CFG)
-    return _run_tools((jtool, jneg, jpos), models[0])
+    return jtool.evaluate_on_scenes(jax_and_port_models(seed=0)[0], n_scenes=N_SCENES,
+                                    threshold=THRESHOLD, min_neighbors=0, miss_analysis=True)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_evaluation(tmp_path_factory):
+    """Starts the JAX evaluation with the module's first test; yields a
+    function that waits for it."""
+    job = tp.Reference(tmp_path_factory.mktemp("jax_reference"), "test_torch_flagship_tools",
+                       "_jax_evaluation")
+    yield job.result
+    job.close()
 
 
 def test_recipe_and_capacities_match_jax():
@@ -113,6 +119,24 @@ def test_recipe_and_capacities_match_jax():
     assert ttool.capacity_schedule_from_quality({"survivors_max": [273, 76, 59]}) == [512, 128]
 
 
+@pytest.mark.parametrize("kind", ["negatives", "positives"])
+def test_mining_matches_jax(models, kind):
+    configure(**CFG)
+    if kind == "negatives":
+        got = tneg.mine(models[1], n_scenes=N_SCENES, threshold=THRESHOLD)
+        ref = jneg.mine(models[0], n_scenes=N_SCENES, threshold=THRESHOLD)
+        assert tneg.MINE_SEED0 == jneg.MINE_SEED0 == 5000
+        assert (tneg.MAX_PER_SCENE, tneg.IOU_NEG_MAX) == (jneg.MAX_PER_SCENE, jneg.IOU_NEG_MAX)
+    else:
+        got, n_missed = tpos.mine(models[1], n_scenes=N_SCENES, threshold=THRESHOLD)
+        ref, ref_missed = jpos.mine(models[0], n_scenes=N_SCENES, threshold=THRESHOLD)
+        assert n_missed == ref_missed > 0
+        assert tpos.MINE_SEED0 == jpos.MINE_SEED0 == 20000
+        assert tpos.IOU_DETECTED == jpos.IOU_DETECTED
+    assert got.shape == ref.shape and got.shape[0] > 0 and got.shape[1:] == (48, 48, 3)
+    np.testing.assert_array_equal(got, ref)
+
+
 def _assert_probe_close(got, ref):
     assert got.keys() == ref.keys()
     for key, value in ref.items():
@@ -122,11 +146,11 @@ def _assert_probe_close(got, ref):
             assert got[key] == value, key
 
 
-def test_evaluate_on_scenes_matches_jax(models, jax_reference):
+def test_evaluate_on_scenes_matches_jax(models, jax_evaluation):
     configure(**CFG)
     got = ttool.evaluate_on_scenes(models[1], n_scenes=N_SCENES, threshold=THRESHOLD,
                                    min_neighbors=0, miss_analysis=True)
-    ref = copy.deepcopy(jax_reference[0])
+    ref = copy.deepcopy(jax_evaluation())
     got_misses, ref_misses = got.pop("misses"), ref.pop("misses")
     assert got == ref
     assert ref["recall"] == 0.5 and ref["misses_stage0_blind"] == 1
@@ -135,25 +159,9 @@ def test_evaluate_on_scenes_matches_jax(models, jax_reference):
         g_probe, r_probe = g.pop("stage_analysis"), r.pop("stage_analysis")
         assert g == r
         _assert_probe_close(g_probe, r_probe)
-    assert sorted(str(r["stage_analysis"]["stage_of_death"]) for r in jax_reference[0]["misses"]) \
+    assert sorted(str(r["stage_analysis"]["stage_of_death"])
+                  for r in jax_evaluation()["misses"]) \
         == ["0", "nms", "nms"]
-
-
-@pytest.mark.parametrize("kind", ["negatives", "positives"])
-def test_mining_matches_jax(models, jax_reference, kind):
-    configure(**CFG)
-    if kind == "negatives":
-        got, ref = tneg.mine(models[1], n_scenes=N_SCENES, threshold=THRESHOLD), jax_reference[1]
-        assert tneg.MINE_SEED0 == jneg.MINE_SEED0 == 5000
-        assert (tneg.MAX_PER_SCENE, tneg.IOU_NEG_MAX) == (jneg.MAX_PER_SCENE, jneg.IOU_NEG_MAX)
-    else:
-        (got, n_missed), (ref, ref_missed) = (
-            tpos.mine(models[1], n_scenes=N_SCENES, threshold=THRESHOLD), jax_reference[2])
-        assert n_missed == ref_missed > 0
-        assert tpos.MINE_SEED0 == jpos.MINE_SEED0 == 20000
-        assert tpos.IOU_DETECTED == jpos.IOU_DETECTED
-    assert got.shape == ref.shape and got.shape[0] > 0 and got.shape[1:] == (48, 48, 3)
-    np.testing.assert_array_equal(got, ref)
 
 
 def test_sweep_ranks_as_jax(monkeypatch, tmp_path):

@@ -6,9 +6,16 @@ port test module) restores the port's configuration after each test, as
 tests/conftest.py does for the JAX package's. ``jax_color_draws`` and
 ``jax_affine_draws`` give the random values a JAX augmentation key draws,
 in the port's draw types, so both packages can augment alike.
+``Reference`` computes a module's JAX reference in a process of its own
+while the module's port side runs.
 """
 
 import math
+import os
+import pickle
+import subprocess
+import sys
+import zlib
 
 import jax
 import numpy as np
@@ -118,3 +125,51 @@ def jax_affine_draws(key, n, acfg):
         crop_top=u(k_t),
         crop=u(k_coin) < acfg.crop_probability,
     )
+
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(TESTS)
+
+
+class Reference:
+    """``function(*args)`` of the test module ``module`` (a name in
+    ``tests/``) in a fresh process, started at once, its result pickled
+    into ``work``: a module fixture starts its JAX references this way, so
+    that they compute while the port's side runs in the test process.
+    The child imports the module as the test process does (``tests/`` and
+    ``tools/`` on its path) with this process's environment, and starts
+    from both packages' default configurations."""
+
+    def __init__(self, work, module, function, *args):
+        name = "{}-{:08x}".format(function, zlib.crc32(repr(args).encode()))
+        self.path = os.path.join(str(work), name + ".pkl")
+        self.log = os.path.join(str(work), name + ".log")
+        code = ("import pickle, sys\n"
+                "sys.path[:0] = [{tests!r}, {tools!r}]\n"
+                "import {module} as m\n"
+                "out = m.{function}(*{args!r})\n"
+                "with open({path!r}, 'wb') as f:\n"
+                "    pickle.dump(out, f)\n").format(
+            tests=TESTS, tools=os.path.join(REPO, "tools"), module=module, function=function,
+            args=args, path=self.path)
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        with open(self.log, "w") as log:
+            self.proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env,
+                                         stdout=subprocess.DEVNULL, stderr=log)
+        self._result = None
+
+    def result(self, timeout=600):
+        """Wait for the process (at most ``timeout`` s) and return its
+        result; a failed process raises with the end of its stderr."""
+        if self._result is None:
+            returncode = self.proc.wait(timeout=timeout)
+            with open(self.log) as f:
+                assert returncode == 0, f.read()[-3000:]
+            with open(self.path, "rb") as f:
+                self._result = pickle.load(f)
+        return self._result
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
