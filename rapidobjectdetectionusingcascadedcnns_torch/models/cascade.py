@@ -58,6 +58,7 @@ from ..ops.windows import crop_and_resize_impl, extract_windows, level_indices, 
 from ..parallel import mesh as mesh_mod
 from ..utils import log
 from ..utils.device import resolve_device, set_numerics, upload
+from ..utils.profiling import annotate
 from . import cnn
 
 
@@ -202,9 +203,10 @@ def _copy_to_host(rows: torch.Tensor):
 
 
 def _read_back(chunk, host, copied):
-    if copied is not None:
-        copied.synchronize()
-    return chunk, host.numpy()
+    with annotate("rodc.read_back"):
+        if copied is not None:
+            copied.synchronize()
+        return chunk, host.numpy()
 
 
 def resolve_extraction_mode(plan: PyramidPlan) -> str:
@@ -466,9 +468,10 @@ def _stage0_apply(
 
     def classify(wins):
         rows = wins.shape[0] * wins.shape[1]
-        probs, bneck = _apply_stage_rows(
-            params, stage_cfg, wins.reshape(rows, size, size, c), None, mean0, std0, chunk
-        )
+        with annotate("rodc.cnn.0"):
+            probs, bneck = _apply_stage_rows(
+                params, stage_cfg, wins.reshape(rows, size, size, c), None, mean0, std0, chunk
+            )
         return probs.reshape(b, -1, probs.shape[1]), bneck.reshape(b, -1, bneck.shape[1])
 
     if extraction_mode == "crop":
@@ -476,33 +479,38 @@ def _stage0_apply(
         if sched is not None:
             # scheduled order is consumed as it is: the window-id channel
             # carries identity, so un-permuting the windows would be waste
-            probs, bneck = classify(windows_sched.extract_scheduled(images, boxes_float, sched))
+            with annotate("rodc.stage0.windows"):
+                wins = windows_sched.extract_scheduled(images, boxes_float, sched)
+            probs, bneck = classify(wins)
             ids, _, valid = sched.device_tables(images.device)
             return probs, bneck, ids, valid
         if planes is None and not high_precision:
-            planes = to_planes_bf16(images)
-        parts = [
-            classify(
-                crop_and_resize_impl(
+            with annotate("rodc.stage0.windows"):
+                planes = to_planes_bf16(images)
+
+        def crops(s):
+            with annotate("rodc.stage0.windows"):
+                return crop_and_resize_impl(
                     images, boxes_float[s : s + chunk].expand(b, -1, 4), size, size,
                     high_precision, planes,
                 )
-            )
-            for s in range(0, boxes_float.shape[0], chunk)
-        ]
+
+        parts = [classify(crops(s)) for s in range(0, boxes_float.shape[0], chunk)]
         return (
             torch.cat([p for p, _ in parts], dim=1),
             torch.cat([bn for _, bn in parts], dim=1),
             None,
             None,
         )
-    probs, bneck = classify(extract_windows(images, plan, indices))
+    with annotate("rodc.stage0.windows"):
+        wins = extract_windows(images, plan, indices)
+    probs, bneck = classify(wins)
     return probs, bneck, None, None
 
 
 def stage_on_boxes(images, planes, boxes, bottleneck, params, cfg: cnn.StageConfig,
-                   stats, resample_impl: str, high_precision: bool, chunk: int):
-    """A later stage over (B, n, 4) boxes of (B, H, W, C) float32 frames:
+                   stats, resample_impl: str, high_precision: bool, chunk: int, stage: int):
+    """Stage ``stage`` over (B, n, 4) boxes of (B, H, W, C) float32 frames:
     re-extraction (:func:`_reextract`) and the stage CNN, reading the
     previous stage's (B, n, F) ``bottleneck`` where the stage takes one.
     Returns (foreground probs (B, n), bottleneck (B, n, F'), K4 overflow
@@ -517,20 +525,23 @@ def stage_on_boxes(images, planes, boxes, bottleneck, params, cfg: cnn.StageConf
         from . import inception
 
         step = max(1, inception.rows_per_chunk(size) // _upper_bound(b))
+    reextract_span, cnn_span = "rodc.reextract.{}".format(stage), "rodc.cnn.{}".format(stage)
     probs_parts, bneck_parts, overflow = [], [], None
     for s in range(0, cap, step):
         n = min(step, cap - s)
-        wins, over = _reextract(
-            images, boxes[:, s : s + n], size, n, resample_impl, high_precision, planes
-        )
+        with annotate(reextract_span):
+            wins, over = _reextract(
+                images, boxes[:, s : s + n], size, n, resample_impl, high_precision, planes
+            )
         overflow = over if overflow is None else overflow + over
         bneck_in = (
             bottleneck[:, s : s + n].reshape(b * n, -1)
             if cfg.bottleneck_in_size is not None else None
         )
-        probs_c, bneck_c = _apply_stage_rows(
-            params, cfg, wins.reshape(b * n, size, size, -1), bneck_in, mean, std, chunk,
-        )
+        with annotate(cnn_span):
+            probs_c, bneck_c = _apply_stage_rows(
+                params, cfg, wins.reshape(b * n, size, size, -1), bneck_in, mean, std, chunk,
+            )
         probs_parts.append(probs_c[:, 1].reshape(b, n))
         bneck_parts.append(bneck_c.reshape(b, n, -1))
     p = probs_parts[0] if len(probs_parts) == 1 else torch.cat(probs_parts, 1)
@@ -577,7 +588,8 @@ def cascade_core(
     images = images.float()
 
     # K1's bf16 planes, converted once for every re-extraction of the chunk
-    planes = None if high_precision else to_planes_bf16(images)
+    with annotate("rodc.stage0.windows"):
+        planes = None if high_precision else to_planes_bf16(images)
 
     mean0, std0 = stage_stats[0]
     probs0, bottleneck, ids0, valid0 = _stage0_apply(
@@ -607,7 +619,7 @@ def cascade_core(
         boxes = coords_norm[window_ids].float()  # (B, cap, 4)
         p_i, bottleneck, overflow = stage_on_boxes(
             images, planes, boxes, bottleneck, stage_params[i], stage_configs[i],
-            stage_stats[i], resample_impl, high_precision, chunk,
+            stage_stats[i], resample_impl, high_precision, chunk, i,
         )
         overflows.append(overflow)
         alive = alive & (p_i > thresholds[i])
@@ -631,12 +643,14 @@ def cascade_core(
 
     from ..ops import nms_cuda
 
-    final = coords_norm[window_ids].float()  # (B, C_last, 4) xyxy
-    xywh = torch.stack(
-        [final[..., 0], final[..., 1], final[..., 2] - final[..., 0], final[..., 3] - final[..., 1]],
-        dim=-1,
-    )
-    avg, weights, keep, _ = nms_cuda.group_rectangles(xywh, alive, nms_min_neighbors, nms_eps)
+    with annotate("rodc.nms_device"):
+        final = coords_norm[window_ids].float()  # (B, C_last, 4) xyxy
+        xywh = torch.stack(
+            [final[..., 0], final[..., 1], final[..., 2] - final[..., 0],
+             final[..., 3] - final[..., 1]],
+            dim=-1,
+        )
+        avg, weights, keep, _ = nms_cuda.group_rectangles(xywh, alive, nms_min_neighbors, nms_eps)
     return window_ids, conf, alive, diagnostics, avg, weights, keep
 
 
@@ -661,6 +675,18 @@ class CascadeDetector:
     replicated once per distinct device, and the results gathered on mesh
     device 0 (JAX ``CascadeDetector(mesh=)``). Pyramid plans and their
     device tables are cached per image size.
+
+    ``counters`` adds up, over the detect calls (host integers, no device
+    synchronisation): ``frames`` requested; ``upload_bytes`` handed to
+    ``utils/device.upload``; ``rows_launched[i]``, the rows stage i ran
+    (stage 0 every window, with K2's pad rows, of every frame a dispatch
+    carries, mesh padding included; stage i >= 1 the dispatch's capacity
+    i - 1), re-dispatched re-runs at their rung; ``rows_needed[i]``, the
+    rows stage i needed (every window of each frame; stage i >= 1 the
+    pre-compaction survivors of stage i - 1 in the frame's kept row); and
+    ``redispatches``, the saturation re-runs (also the attribute
+    ``redispatches``). The window-sharded path
+    (``parallel/window_shard.py``) counts only ``redispatches``.
     """
 
     def __init__(self, model: CascadeModel, capacity_schedule=None, mesh=None):
@@ -669,7 +695,8 @@ class CascadeDetector:
         self.model = model
         self.mesh = mesh_mod.Mesh([model.device]) if mesh is None else mesh_mod.as_mesh(mesh)
         self.device = self.mesh[0]
-        self.redispatches = 0  # saturation re-runs, for diagnostics
+        self.counters = {"frames": 0, "upload_bytes": 0, "rows_launched": [0] * model.n_nets,
+                         "rows_needed": [0] * model.n_nets, "redispatches": 0}
         self._saturation_warned = False
         self._plan_cache: Dict[tuple, list] = {}
         self._capacity_override = capacity_schedule or cf.get("cascade_capacity_schedule")
@@ -691,6 +718,15 @@ class CascadeDetector:
             mesh_mod.replicate(self.mesh, self._stats_device),
         ))
         self._params_device = self._shards[0][0]
+
+    @property
+    def redispatches(self) -> int:
+        """Saturation re-runs, for diagnostics (``counters``)."""
+        return self.counters["redispatches"]
+
+    @redispatches.setter
+    def redispatches(self, value: int) -> None:
+        self.counters["redispatches"] = value
 
     def _plan_and_table(self, img_h: int, img_w: int) -> list:
         """[plan, window table, coords_norm (N, 4) int64 and boxes_float
@@ -810,34 +846,56 @@ class CascadeDetector:
         mode = resolve_extraction_mode(plan)
         coords_norm, boxes_float, indices = self._tables_on(entry, device, mode)
         n_stages = self.model.n_nets
+        impl = resample or resolve_resample_impl()
+        high_precision = bool(cf.get("inference_high_precision"))
+        self._count_dispatch(frames, yuv, caps, plan, mode, impl, high_precision)
         with mesh_mod.on_device(device):
-            if yuv:
-                y = upload([f[0] for f in frames], device)
-                uv = upload([f[1] for f in frames], device)
-                images = yuv420_to_rgb(y, uv)
-            else:
-                images = upload(frames, device).float()
-            out = cascade_core(
-                images,
-                coords_norm,
-                boxes_float,
-                params,
-                stats,
-                plan,
-                self.model.stage_configs,
-                tuple(caps),
-                cf.get("final_confidence_calculation"),
-                tuple(resolve_thresholds(n_stages)),
-                bool(cf.get("inference_high_precision")),
-                int(cf.get("inference_chunk_size")),
-                resolve_compaction(),
-                indices,
-                mode,
-                resample or resolve_resample_impl(),
-                int(cf.get("nms_opencv_min_neighbors")) if resolve_nms_on_device() else -1,
-                float(cf.get("nms_opencv_eps")),
-            )
-            return pack_result(*out)
+            with annotate("rodc.upload"):
+                if yuv:
+                    y = upload([f[0] for f in frames], device)
+                    uv = upload([f[1] for f in frames], device)
+                else:
+                    images = upload(frames, device)
+            with annotate("rodc.dispatch"):
+                if yuv:
+                    with annotate("rodc.stage0.windows"):
+                        images = yuv420_to_rgb(y, uv)
+                else:
+                    images = images.float()
+                out = cascade_core(
+                    images,
+                    coords_norm,
+                    boxes_float,
+                    params,
+                    stats,
+                    plan,
+                    self.model.stage_configs,
+                    tuple(caps),
+                    cf.get("final_confidence_calculation"),
+                    tuple(resolve_thresholds(n_stages)),
+                    high_precision,
+                    int(cf.get("inference_chunk_size")),
+                    resolve_compaction(),
+                    indices,
+                    mode,
+                    impl,
+                    int(cf.get("nms_opencv_min_neighbors")) if resolve_nms_on_device() else -1,
+                    float(cf.get("nms_opencv_eps")),
+                )
+                return pack_result(*out)
+
+    def _count_dispatch(self, frames, yuv: bool, caps, plan, mode: str, impl: str,
+                        high_precision: bool) -> None:
+        """``counters``' upload bytes and rows launched of one dispatch."""
+        counters = self.counters
+        counters["upload_bytes"] += sum(a.nbytes for f in frames for a in (f if yuv else (f,)))
+        sched = None
+        if mode == "crop":
+            sched = _stage0_schedule(plan, self.model.input_sizes[0], impl, high_precision)
+        launched = counters["rows_launched"]
+        launched[0] += len(frames) * (plan.n_windows if sched is None else sched.n_slots)
+        for i, cap in enumerate(caps, start=1):
+            launched[i] += len(frames) * int(cap)
 
     def _detect_batch_exact(self, images: Sequence, yuv: bool = False) -> List[DetectionResult]:
         """Same-size frames go through one batched cascade per chunk of
@@ -846,32 +904,41 @@ class CascadeDetector:
         of a size is read back."""
         resolve_resample_impl()  # refuse an unported choice before any upload
         results: List[Optional[DetectionResult]] = [None] * len(images)
+        needed = self.counters["rows_needed"]
 
         by_size: Dict[Tuple[int, int], List[int]] = {}
         for i, img in enumerate(images):
             shape = img[0].shape if yuv else img.shape
             by_size.setdefault((shape[0], shape[1]), []).append(i)
 
-        for (img_h, img_w), idxs in by_size.items():
-            entry = self._plan_and_table(img_h, img_w)
-            plan, table = entry[0], entry[1]
-            if plan.n_windows < 1:
-                raise ValueError("Could not extract any windows from the given image")
-            capacities = tuple(
-                self._capacity_override
-                or default_capacity_schedule(plan.n_windows, self.model.n_nets)
-            )
+        with annotate("rodc.request"):
+            self.counters["frames"] += len(images)
+            for (img_h, img_w), idxs in by_size.items():
+                entry = self._plan_and_table(img_h, img_w)
+                plan, table = entry[0], entry[1]
+                if plan.n_windows < 1:
+                    raise ValueError("Could not extract any windows from the given image")
+                capacities = tuple(
+                    self._capacity_override
+                    or default_capacity_schedule(plan.n_windows, self.model.n_nets)
+                )
 
-            def run(frames, caps, resample=None):
-                return self._run_chunk(frames, yuv, caps, entry, resample)
+                def run(frames, caps, resample=None):
+                    return self._run_chunk(frames, yuv, caps, entry, resample)
 
-            for chunk, packed in read_back_pipelined(
-                    idxs, lambda chunk: run([images[i] for i in chunk], capacities)):
-                for j, i in enumerate(chunk):
-                    row, caps = packed[j], capacities
-                    if self._row_saturated(row, caps, plan):
-                        row, caps = self._handle_saturation(images[i], row, caps, plan, run)
-                    results[i] = self._unpack_row(row, caps, plan, table)
+                chunks = read_back_pipelined(
+                    idxs, lambda chunk: run([images[i] for i in chunk], capacities))
+                with annotate("rodc.decode"):
+                    for chunk, packed in chunks:
+                        for j, i in enumerate(chunk):
+                            row, caps = packed[j], capacities
+                            if self._row_saturated(row, caps, plan):
+                                row, caps = self._handle_saturation(images[i], row, caps, plan,
+                                                                    run)
+                            results[i] = res = self._unpack_row(row, caps, plan, table)
+                            needed[0] += plan.n_windows
+                            for k, n in enumerate(res.n_survivors_per_stage[:-1], start=1):
+                                needed[k] += n
         return results  # type: ignore[return-value]
 
     def _row_saturated(self, row, capacities, plan) -> bool:
@@ -921,7 +988,8 @@ class CascadeDetector:
 
         def rerun(caps, resample=None):
             self.redispatches += 1
-            return run([frame], caps, resample).cpu().numpy()[0]
+            with annotate("rodc.redispatch"):
+                return run([frame], caps, resample).cpu().numpy()[0]
 
         def overflowed(r, caps) -> bool:
             overflows = packed_row_counts(r, caps, self.model.n_nets, plan.n_windows)[1]

@@ -37,6 +37,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import annotate
+
 Params = Dict[str, object]
 
 
@@ -281,7 +283,8 @@ def apply_stage(
         if x.dim() == 2:
             fc1 = x.float()
         else:
-            fc1 = inception.apply_backbone(params["backbone"], x, dtype=cdt)
+            with annotate("rodc.trunk"):
+                fc1 = inception.apply_backbone(params["backbone"], x, dtype=cdt)
     else:
         h = x.to(cdt).permute(0, 3, 1, 2)
         for layer in params["conv"]:

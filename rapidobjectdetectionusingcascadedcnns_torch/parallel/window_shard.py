@@ -131,12 +131,12 @@ def shard_stage0(frame: torch.Tensor, boxes0_or_wins0: torch.Tensor, plan, param
 
 
 def shard_stage(frame: torch.Tensor, boxes: torch.Tensor, bottleneck: torch.Tensor, params, cfg,
-                stats, chunk: int, high_precision: bool, planes=None):
-    """A later stage over one shard's (m, 4) boxes, re-extracted by K1 from
-    the (1, H, W, C) float32 frame. Returns (foreground probs (m,),
+                stats, chunk: int, high_precision: bool, planes=None, *, stage: int):
+    """Stage ``stage`` over one shard's (m, 4) boxes, re-extracted by K1
+    from the (1, H, W, C) float32 frame. Returns (foreground probs (m,),
     bottleneck (m, F'))."""
     p, bneck, _ = casc.stage_on_boxes(frame, planes, boxes[None], bottleneck[None], params, cfg,
-                                      stats, "pallas", high_precision, chunk)
+                                      stats, "pallas", high_precision, chunk, stage)
     return p[0], bneck[0]
 
 
@@ -196,7 +196,7 @@ def detect_window_sharded(detector: "casc.CascadeDetector", image: np.ndarray,
     def stage(i, k, boxes, bottleneck):
         params, stats = shards[k]
         return shard_stage(frames[k], boxes, bottleneck, params[i], configs[i], stats[i], chunk,
-                           high_precision, planes[mesh[k]])
+                           high_precision, planes[mesh[k]], stage=i)
 
     def run(caps):
         caps = padded_capacities(caps, mesh.size)

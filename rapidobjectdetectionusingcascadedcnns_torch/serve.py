@@ -74,6 +74,7 @@ from .parallel import mesh as mesh_mod
 from .parallel import window_shard
 from .utils import log
 from .utils.device import resolve_device, set_numerics, upload
+from .utils.profiling import annotate
 
 FORMAT_VERSION = 2  # 2: dynamic batches, platforms and the export device
 PROGRAM_FORMAT = "torch.export"
@@ -155,14 +156,15 @@ def unpack_packed_row(
         if vertically_enlarge and len(boxes):
             boxes = rect_ops.vertically_enlarge(boxes, enlarge_top=0.2)
     else:
-        boxes, confidences = postprocess_raw(
-            raw_boxes,
-            raw_conf,
-            nms_mode=nms_mode,
-            nms_min_neighbors=nms_min_neighbors,
-            vertically_enlarge=vertically_enlarge,
-            nms_eps=nms_eps,
-        )
+        with annotate("rodc.host_nms"):
+            boxes, confidences = postprocess_raw(
+                raw_boxes,
+                raw_conf,
+                nms_mode=nms_mode,
+                nms_min_neighbors=nms_min_neighbors,
+                vertically_enlarge=vertically_enlarge,
+                nms_eps=nms_eps,
+            )
     return DetectionResult(
         boxes=boxes,
         confidences=confidences,
@@ -543,7 +545,7 @@ class _WindowProgram(torch.nn.Module):
                                              kn["chunk"], kn["extraction_mode"],
                                              kn["high_precision"], planes)
         return window_shard.shard_stage(frame, rows[0], rows[1], params, cfg, stats, kn["chunk"],
-                                        kn["high_precision"], planes)
+                                        kn["high_precision"], planes, stage=i)
 
 
 def export_window_sharded(

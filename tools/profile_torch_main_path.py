@@ -28,10 +28,13 @@ instead of random weights; the VGA path then also runs at the capacities
 first.
 
 For each setting it prints the median wall time of a batch, the kernel
-launches per batch, the host time spent in NMS (``serve.postprocess_raw``,
-which decodes every packed row, re-dispatched ones included), the device's
-busy share (sum of kernel time over wall time, from torch.profiler) and
-the kernels that take the most device time;
+launches per batch, and, from one batch under torch.profiler: the
+detector's ``counters`` over that batch (frames, upload bytes, rows each
+stage launched and needed, re-dispatches), the card's idle time split by
+the host span open at each idle instant (``utils/profiling.span_report``:
+between calls, upload and dispatch, read-back and decode, other), each
+``rodc.*`` span's count and host, device and idle time (host NMS is
+``rodc.host_nms``), and the kernels that take the most device time;
 the full tables go to ``chiprun_out/profile_main_path.txt`` (or
 ``profile_dense_path.txt``, with ``_flagship`` before the suffix for
 ``--flagship``). Run from the repository root on a machine with a card:
@@ -43,11 +46,14 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import io
+import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -59,6 +65,23 @@ OUT_DIR = "chiprun_out"
 def _self_device_us(event) -> float:
     value = getattr(event, "self_device_time_total", None)
     return event.self_cuda_time_total if value is None else value
+
+
+def _chrome_events(prof) -> list:
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+
+
+def _delta(after, before):
+    if isinstance(after, list):
+        return [a - b for a, b in zip(after, before)]
+    return after - before
 
 
 def _vga_case(cf, synthetic, cascade):
@@ -129,23 +152,11 @@ def main(argv=None) -> int:
         windows_sched_cuda,
     )
 
-    from rapidobjectdetectionusingcascadedcnns_torch import native, serve
+    from rapidobjectdetectionusingcascadedcnns_torch import native
+    from rapidobjectdetectionusingcascadedcnns_torch.utils import profiling
 
     kernels = (("K1", windows_cuda), ("K2", windows_sched_cuda), ("K4", windows_dyn_cuda),
                ("K3", nms_cuda))
-    # host NMS time: every decoded packed row goes through postprocess_raw
-    nms = {"s": 0.0, "calls": 0}
-    postprocess = serve.postprocess_raw
-
-    def timed_postprocess(*a, **k):
-        t0 = time.perf_counter()
-        try:
-            return postprocess(*a, **k)
-        finally:
-            nms["s"] += time.perf_counter() - t0
-            nms["calls"] += 1
-
-    serve.postprocess_raw = timed_postprocess
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -187,7 +198,6 @@ def main(argv=None) -> int:
             det.redispatches = 0
             for _, module in kernels:
                 module.LAUNCHES = 0
-            nms.update(s=0.0, calls=0)
             walls = []
             for _ in range(reps):
                 torch.cuda.synchronize()
@@ -198,25 +208,35 @@ def main(argv=None) -> int:
             launches = ", ".join(
                 "{} {}".format(name, module.LAUNCHES // reps) for name, module in kernels
             )
-            nms_s, nms_calls = nms["s"] / reps, nms["calls"] // reps
+            before = copy.deepcopy(det.counters)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 detect(frames)
                 torch.cuda.synchronize()
                 prof_wall = time.perf_counter() - t0
-        events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        counters = {k: _delta(v, before[k]) for k, v in det.counters.items()}
+        report = profiling.span_report(_chrome_events(prof))
+        events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+                  and not e.key.startswith("rodc.")]  # kernels, not the spans over them
         device_us = sum(_self_device_us(e) for e in events)
         med = statistics.median(walls)
         print("{}: batch wall median {:.4f} s of {} -> {:.2f} frames/s; re-dispatches "
-              "{}, launches per batch {}; host NMS {:.4f} s per batch over {} decoded "
-              "rows (native.available() {}); survivors frame 0 {}".format(
-                  label, med, [round(w, 4) for w in walls], len(frames) / med,
-                  redispatches, launches, nms_s, nms_calls, native.available(),
-                  res[0].n_survivors_per_stage))
-        print("{}: profiled batch wall {:.4f} s, device kernel time {:.4f} s, busy "
-              "share {:.3f}".format(label, prof_wall, device_us / 1e6,
-                                   device_us / 1e6 / prof_wall))
+              "{}, launches per batch {} (native.available() {}); survivors frame 0 "
+              "{}".format(label, med, [round(w, 4) for w in walls], len(frames) / med,
+                          redispatches, launches, native.available(),
+                          res[0].n_survivors_per_stage))
+        print("{}: profiled batch wall {:.4f} s; counters {}".format(
+            label, prof_wall, json.dumps(counters)))
+        print("{}: card idle {:.5f} of the profiler's {:.5f} s: {}; host-to-device copies "
+              "under rodc.upload {:.5f} s".format(
+                  label, report["idle_s"], report["window_s"],
+                  ", ".join("{} {:.5f}".format(k, v) for k, v in report["idle"].items()),
+                  report["h2d_s"]))
+        for name, row in sorted(report["spans"].items()):
+            print("  {:<22} x{:<4d} host {:>9.3f} ms, device {:>9.3f} ms, card idle {:>8.3f} "
+                  "ms".format(name, row["count"], row["host_s"] * 1e3, row["device_s"] * 1e3,
+                              row["idle_s"] * 1e3))
         top = sorted(events, key=lambda e: -_self_device_us(e))[:12]
         for e in top:
             print("  {:>9.3f} ms {:>6.1%} x{:<5d} {}".format(
