@@ -2732,8 +2732,10 @@ INC_POS, INC_NEG, INC_MINED = 1000, 3000, 1
 # (frames, boxes) at which K1 is held at 299 px beside the shapes the path
 # launched it at (the detector cuts the stage into chunks of
 # inception.rows_per_chunk() // frames boxes a frame, so it launches
-# neither of these)
-INC_K1_EXTRA_SHAPES = ((N_FRAMES, 64), (1, 256))
+# neither of the first two; 16 x 3, the last chunk of the 256 slots, the
+# live detector launches only when a frame keeps a live slot past the
+# 253rd)
+INC_K1_EXTRA_SHAPES = ((N_FRAMES, 64), (1, 256), (N_FRAMES, 3))
 INC_BIG_BOXES = 8192  # one K1 launch of more than 2^31 output values
 INC_TRAIN_STEPS = 10  # synchronised updates of the compact trunk trained end to end
 INC_COMPACT_SAMPLES = 1024  # its corpus: 819 training samples, one batch of 512

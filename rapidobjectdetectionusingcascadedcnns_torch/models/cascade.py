@@ -21,7 +21,10 @@ Per chunk of same-size frames, every stage runs once for all frames:
             Inception stage (299 px, ``append_inception``) re-extracts and
             classifies its boxes in chunks whose windows and trunk
             activations fit ``models/inception.CHUNK_BYTES`` (4 GiB), so
-            each of its K1 launches stays far below 2^31 values
+            each of its K1 launches stays far below 2^31 values; the live
+            detector runs only the chunks up to the last slot alive in any
+            frame of the dispatch (one host read of that count), a traced
+            bundle and the window-sharded path every chunk
   last:     one packed float32 row per frame leaves the device; NMS runs on
             the host (numpy/native groupRectangles), or with
             ``nms_on_device`` on the device as a tail of the same program:
@@ -508,15 +511,29 @@ def _stage0_apply(
     return probs, bneck, None, None
 
 
+def _live_slots(alive: torch.Tensor) -> int:
+    """One past the last slot of (B, n) ``alive`` that is live in any frame
+    (0 when none is): the slots a stage must run. A host read, so one
+    device synchronisation."""
+    slots = torch.arange(1, alive.shape[1] + 1, device=alive.device)
+    return int((alive * slots).max())
+
+
 def stage_on_boxes(images, planes, boxes, bottleneck, params, cfg: cnn.StageConfig,
-                   stats, resample_impl: str, high_precision: bool, chunk: int, stage: int):
+                   stats, resample_impl: str, high_precision: bool, chunk: int, stage: int,
+                   alive: Optional[torch.Tensor] = None):
     """Stage ``stage`` over (B, n, 4) boxes of (B, H, W, C) float32 frames:
     re-extraction (:func:`_reextract`) and the stage CNN, reading the
     previous stage's (B, n, F) ``bottleneck`` where the stage takes one.
     Returns (foreground probs (B, n), bottleneck (B, n, F'), K4 overflow
-    (B,)). An Inception stage handles its boxes in chunks whose 299 px
-    windows and trunk activations fit ``inception.rows_per_chunk`` (rows
-    are independent: the same result)."""
+    (B,), the slots of a frame it ran). An Inception stage handles its
+    boxes in chunks whose 299 px windows and trunk activations fit
+    ``inception.rows_per_chunk`` (rows are independent: the same result).
+    Given the boxes' (B, n) ``alive`` mask, a stage cut into more than one
+    chunk runs only the chunks before :func:`_live_slots`; the slots past
+    them, dead in every frame, get foreground probability 0 and a zero
+    bottleneck. Each chunk run has the shape it has in the full walk, so
+    every live slot's result is the full walk's bit for bit."""
     b, cap = images.shape[0], boxes.shape[1]
     size = cfg.input_size
     mean, std = stats
@@ -525,9 +542,10 @@ def stage_on_boxes(images, planes, boxes, bottleneck, params, cfg: cnn.StageConf
         from . import inception
 
         step = max(1, inception.rows_per_chunk(size) // _upper_bound(b))
+    end = _live_slots(alive) if alive is not None and step < cap else cap
     reextract_span, cnn_span = "rodc.reextract.{}".format(stage), "rodc.cnn.{}".format(stage)
-    probs_parts, bneck_parts, overflow = [], [], None
-    for s in range(0, cap, step):
+    probs_parts, bneck_parts, overflow, done = [], [], None, 0
+    for s in range(0, end, step):
         n = min(step, cap - s)
         with annotate(reextract_span):
             wins, over = _reextract(
@@ -544,9 +562,15 @@ def stage_on_boxes(images, planes, boxes, bottleneck, params, cfg: cnn.StageConf
             )
         probs_parts.append(probs_c[:, 1].reshape(b, n))
         bneck_parts.append(bneck_c.reshape(b, n, -1))
+        done += n
+    if done < cap:
+        probs_parts.append(images.new_zeros(b, cap - done))
+        bneck_parts.append(images.new_zeros(b, cap - done, cfg.bottleneck_out_size))
+        if overflow is None:
+            overflow = torch.zeros(b, dtype=torch.long, device=images.device)
     p = probs_parts[0] if len(probs_parts) == 1 else torch.cat(probs_parts, 1)
     bneck = bneck_parts[0] if len(bneck_parts) == 1 else torch.cat(bneck_parts, 1)
-    return p, bneck, overflow
+    return p, bneck, overflow, done
 
 
 def cascade_core(
@@ -568,20 +592,28 @@ def cascade_core(
     resample_impl: str = "pallas2",
     nms_min_neighbors: int = -1,
     nms_eps: float = 0.2,
+    live_prefix: bool = False,
 ):
     """Full cascade over a chunk of frames.
 
     ``images`` (B, H, W, C) float32; ``coords_norm`` (N0, 4) int64 window
     boxes on the original image (re-extraction); ``boxes_float`` (N0, 4)
-    float32 exact window geometry (crop-mode stage 0). Returns
-    ``window_ids`` (B, C_last) int64, ``conf`` (B, C_last) f32, ``alive``
-    (B, C_last) bool and ``diagnostics`` (B, 2 * n_stages - 1): per-stage
-    pre-compaction survivor counts, then per-re-extract K4 big-class
-    overflow counts (0 where K4 did not run). With ``nms_min_neighbors >=
-    0`` the groupRectangles tail runs too (``rodc::cluster``, kernel K3,
-    once for the chunk) and the tuple gains ``cluster_xywh`` (B, C_last, 4)
-    int32, ``cluster_weights`` (B, C_last) int32 and ``cluster_keep``
-    (B, C_last) bool.
+    float32 exact window geometry (crop-mode stage 0). Returns (outputs,
+    slots): ``slots`` lists the slots of a frame each stage ran, stage 0
+    first; ``outputs`` is ``window_ids`` (B, C_last) int64, ``conf`` (B,
+    C_last) f32, ``alive`` (B, C_last) bool and ``diagnostics`` (B, 2 *
+    n_stages - 1): per-stage pre-compaction survivor counts, then
+    per-re-extract K4 big-class overflow counts (0 where K4 did not run).
+    With ``nms_min_neighbors >= 0`` the groupRectangles tail runs too
+    (``rodc::cluster``, kernel K3, once for the chunk) and ``outputs``
+    gains ``cluster_xywh`` (B, C_last, 4) int32, ``cluster_weights`` (B,
+    C_last) int32 and ``cluster_keep`` (B, C_last) bool.
+
+    ``live_prefix`` (the live detector): a stage cut into more than one
+    slot chunk runs only the chunks up to the last slot alive after its
+    compaction (:func:`stage_on_boxes`; one host read a stage). Without it
+    every chunk runs, as a traced program (which must not read the device)
+    needs.
     """
     n_stages = len(stage_configs)
     b = images.shape[0]
@@ -607,6 +639,7 @@ def cascade_core(
     window_ids = ids0.expand(b, n0)
     survivors = [alive.sum(dim=1)]
     overflows = []
+    slots = [n0]
 
     for i in range(1, n_stages):
         cap = capacities[i - 1]
@@ -617,11 +650,13 @@ def cascade_core(
             bottleneck, 1, keep[:, :, None].expand(b, cap, bottleneck.shape[2])
         )
         boxes = coords_norm[window_ids].float()  # (B, cap, 4)
-        p_i, bottleneck, overflow = stage_on_boxes(
+        p_i, bottleneck, overflow, done = stage_on_boxes(
             images, planes, boxes, bottleneck, stage_params[i], stage_configs[i],
             stage_stats[i], resample_impl, high_precision, chunk, i,
+            alive if live_prefix else None,
         )
         overflows.append(overflow)
+        slots.append(done)
         alive = alive & (p_i > thresholds[i])
         if confidence_mode == cf.FINAL_CONFIDENCE_CALCULATION_AVG:
             conf = conf + p_i
@@ -639,7 +674,7 @@ def cascade_core(
 
     diagnostics = torch.stack(survivors + overflows, dim=1)
     if nms_min_neighbors < 0:
-        return window_ids, conf, alive, diagnostics
+        return (window_ids, conf, alive, diagnostics), slots
 
     from ..ops import nms_cuda
 
@@ -651,7 +686,7 @@ def cascade_core(
             dim=-1,
         )
         avg, weights, keep, _ = nms_cuda.group_rectangles(xywh, alive, nms_min_neighbors, nms_eps)
-    return window_ids, conf, alive, diagnostics, avg, weights, keep
+    return (window_ids, conf, alive, diagnostics, avg, weights, keep), slots
 
 
 def pack_result(window_ids, conf, alive, diagnostics, *nms_tail) -> torch.Tensor:
@@ -676,12 +711,19 @@ class CascadeDetector:
     device 0 (JAX ``CascadeDetector(mesh=)``). Pyramid plans and their
     device tables are cached per image size.
 
-    ``counters`` adds up, over the detect calls (host integers, no device
-    synchronisation): ``frames`` requested; ``upload_bytes`` handed to
-    ``utils/device.upload``; ``rows_launched[i]``, the rows stage i ran
-    (stage 0 every window, with K2's pad rows, of every frame a dispatch
-    carries, mesh padding included; stage i >= 1 the dispatch's capacity
-    i - 1), re-dispatched re-runs at their rung; ``rows_needed[i]``, the
+    A stage cut into more than one slot chunk (the 299 px Inception stage)
+    runs only the chunks up to the last slot alive in any frame of the
+    dispatch (``cascade_core``'s ``live_prefix``): one host read before
+    that stage.
+
+    ``counters`` adds up, over the detect calls (host integers): ``frames``
+    requested; ``upload_bytes`` handed to ``utils/device.upload``;
+    ``rows_launched[i]``, the rows stage i ran (stage 0 every window, with
+    K2's pad rows, of every frame a dispatch carries, mesh padding
+    included; stage i >= 1 the slots it ran of the dispatch's capacity
+    i - 1), re-dispatched re-runs at their rung; ``rows_skipped[i]``, the
+    rows of capacity i - 1 that stage i left out as dead in every frame (0
+    for stage 0 and every stage run in one chunk); ``rows_needed[i]``, the
     rows stage i needed (every window of each frame; stage i >= 1 the
     pre-compaction survivors of stage i - 1 in the frame's kept row); and
     ``redispatches``, the saturation re-runs (also the attribute
@@ -696,7 +738,8 @@ class CascadeDetector:
         self.mesh = mesh_mod.Mesh([model.device]) if mesh is None else mesh_mod.as_mesh(mesh)
         self.device = self.mesh[0]
         self.counters = {"frames": 0, "upload_bytes": 0, "rows_launched": [0] * model.n_nets,
-                         "rows_needed": [0] * model.n_nets, "redispatches": 0}
+                         "rows_skipped": [0] * model.n_nets, "rows_needed": [0] * model.n_nets,
+                         "redispatches": 0}
         self._saturation_warned = False
         self._plan_cache: Dict[tuple, list] = {}
         self._capacity_override = capacity_schedule or cf.get("cascade_capacity_schedule")
@@ -848,7 +891,8 @@ class CascadeDetector:
         n_stages = self.model.n_nets
         impl = resample or resolve_resample_impl()
         high_precision = bool(cf.get("inference_high_precision"))
-        self._count_dispatch(frames, yuv, caps, plan, mode, impl, high_precision)
+        self.counters["upload_bytes"] += sum(
+            a.nbytes for f in frames for a in (f if yuv else (f,)))
         with mesh_mod.on_device(device):
             with annotate("rodc.upload"):
                 if yuv:
@@ -862,7 +906,7 @@ class CascadeDetector:
                         images = yuv420_to_rgb(y, uv)
                 else:
                     images = images.float()
-                out = cascade_core(
+                out, slots = cascade_core(
                     images,
                     coords_norm,
                     boxes_float,
@@ -881,21 +925,15 @@ class CascadeDetector:
                     impl,
                     int(cf.get("nms_opencv_min_neighbors")) if resolve_nms_on_device() else -1,
                     float(cf.get("nms_opencv_eps")),
+                    live_prefix=True,
                 )
-                return pack_result(*out)
-
-    def _count_dispatch(self, frames, yuv: bool, caps, plan, mode: str, impl: str,
-                        high_precision: bool) -> None:
-        """``counters``' upload bytes and rows launched of one dispatch."""
-        counters = self.counters
-        counters["upload_bytes"] += sum(a.nbytes for f in frames for a in (f if yuv else (f,)))
-        sched = None
-        if mode == "crop":
-            sched = _stage0_schedule(plan, self.model.input_sizes[0], impl, high_precision)
-        launched = counters["rows_launched"]
-        launched[0] += len(frames) * (plan.n_windows if sched is None else sched.n_slots)
-        for i, cap in enumerate(caps, start=1):
-            launched[i] += len(frames) * int(cap)
+                packed = pack_result(*out)
+        launched, skipped = self.counters["rows_launched"], self.counters["rows_skipped"]
+        for i, done in enumerate(slots):
+            launched[i] += len(frames) * done
+            if i:
+                skipped[i] += len(frames) * (int(caps[i - 1]) - done)
+        return packed
 
     def _detect_batch_exact(self, images: Sequence, yuv: bool = False) -> List[DetectionResult]:
         """Same-size frames go through one batched cascade per chunk of

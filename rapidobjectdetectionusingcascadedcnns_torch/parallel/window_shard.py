@@ -135,8 +135,8 @@ def shard_stage(frame: torch.Tensor, boxes: torch.Tensor, bottleneck: torch.Tens
     """Stage ``stage`` over one shard's (m, 4) boxes, re-extracted by K1
     from the (1, H, W, C) float32 frame. Returns (foreground probs (m,),
     bottleneck (m, F'))."""
-    p, bneck, _ = casc.stage_on_boxes(frame, planes, boxes[None], bottleneck[None], params, cfg,
-                                      stats, "pallas", high_precision, chunk, stage)
+    p, bneck, _, _ = casc.stage_on_boxes(frame, planes, boxes[None], bottleneck[None], params, cfg,
+                                         stats, "pallas", high_precision, chunk, stage)
     return p[0], bneck[0]
 
 

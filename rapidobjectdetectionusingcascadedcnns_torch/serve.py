@@ -269,7 +269,7 @@ class _CascadeProgram(torch.nn.Module):
             (getattr(self, "mean{}".format(k)), getattr(self, "std{}".format(k)))
             for k in range(len(configs))
         )
-        out = casc.cascade_core(
+        out, _ = casc.cascade_core(
             images, self.coords_norm, self.boxes_float,
             unflatten_params(flat, configs, kn["trunks"]), stats,
             kn["plan"], configs, self.capacities, kn["confidence_mode"], kn["thresholds"],

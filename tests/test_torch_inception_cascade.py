@@ -1,7 +1,8 @@
 """A cascade with the appended Inception stage in the port against the JAX
 package on the CPU: K1's plain version at 299 px, a 2-stage cascade (a
 12 px stage and a compact-trunk Inception stage) converted from JAX
-detecting a small frame, the Inception stage's byte-bounded chunks, a
+detecting a small frame, the Inception stage's byte-bounded chunks and
+the live detector's walk of only the chunks that hold a live slot, a
 static serving bundle of it against the live detector, the 299 px stage
 sent to K1 under ``dyn_reextract="on"`` as the JAX gate sends it, and the
 stage's checkpoints read across the packages.
@@ -42,8 +43,25 @@ CASCADE_CFG = dict(window_scale_factor=1.3, conv_filter_sizes=[4], fc1_size=8,
                    foreground_confidence_threshold=[0.0, 0.5])
 
 
-def _frame():
-    return synthetic.make_scene(24, 28, 1, seed=3, min_face=16, max_face=20).image
+# stage 0 keeps 39 and 41 of the 98 windows of frames 3 and 4, fewer than
+# the capacity (98), so that an Inception stage cut into small chunks holds
+# no live slot in its last chunks
+LIVE_CFG = dict(CASCADE_CFG, foreground_confidence_threshold=[0.75, 0.5])
+
+_CORE = tcascade.cascade_core
+_BACKBONE = tinc.apply_backbone
+
+
+def _frame(seed=3):
+    return synthetic.make_scene(24, 28, 1, seed=seed, min_face=16, max_face=20).image
+
+
+def _chunk_rows(monkeypatch, rows):
+    """Cut the Inception stage into chunks of ``rows`` rows (a smaller byte
+    budget)."""
+    per_row = tinc.CHUNK_BYTES // tinc.rows_per_chunk()
+    monkeypatch.setattr(tinc, "CHUNK_BYTES", rows * per_row + 1)
+    assert tinc.rows_per_chunk() == rows
 
 
 @pytest.fixture(scope="module")
@@ -119,9 +137,7 @@ def test_inception_stage_chunks_give_the_same_result(models, monkeypatch):
     independent."""
     _, tmodel, _, whole, _ = models
     tp.configure(**CASCADE_CFG)
-    per_row = tinc.CHUNK_BYTES // tinc.rows_per_chunk()
-    monkeypatch.setattr(tinc, "CHUNK_BYTES", 7 * per_row + 1)
-    assert tinc.rows_per_chunk() == 7
+    _chunk_rows(monkeypatch, 7)
     chunked = tcascade.CascadeDetector(tmodel).detect(_frame())
     np.testing.assert_array_equal(chunked.raw_window_ids, whole.raw_window_ids)
     np.testing.assert_allclose(chunked.raw_confidences, whole.raw_confidences, atol=1e-6)
@@ -138,6 +154,106 @@ def test_static_bundle_equals_live_detector(models, tmp_path):
     bundle = tserve.export_detector(tmodel, 24, 28, batch=1, n_rungs=1)
     assert bundle.meta["trunks"] == [None, "compact"]
     tserve.save_bundle(bundle, str(tmp_path))
+    tcf.reset()
+    served = tserve.load_bundle(str(tmp_path), device="cpu").detect(_frame())
+    np.testing.assert_array_equal(served.raw_window_ids, live.raw_window_ids)
+    np.testing.assert_array_equal(served.raw_confidences, live.raw_confidences)
+    np.testing.assert_array_equal(served.boxes, live.boxes)
+    assert served.n_survivors_per_stage == live.n_survivors_per_stage
+
+
+@pytest.mark.parametrize("threshold", [0.75, 1.0])
+def test_live_prefix_runs_only_chunks_with_a_live_slot(models, monkeypatch, threshold):
+    """With the Inception stage cut into chunks of 5 slots a frame (10 rows
+    for 2 frames), ``cascade_core``'s live prefix runs the chunks up to the
+    last slot alive in either frame (the second frame's 41st: 9 chunks, where
+    the first frame's 39 slots take 8) and no more, and gives the full walk's
+    window ids, alive mask, survivor counts and live confidences bit for
+    bit, and so its detections, which the JAX detector's match. The
+    counters hold the rows run and the rows skipped, adding up to the
+    capacity. At threshold 1.0 no window survives stage 0: no trunk chunk
+    runs, and the empty result is the full walk's."""
+    jmodel, tmodel, _, _, _ = models
+    tp.configure(**dict(LIVE_CFG, foreground_confidence_threshold=[threshold, 0.5]))
+    _chunk_rows(monkeypatch, 10)
+    frames = [_frame(3), _frame(4)]
+
+    def run(live_prefix):
+        outs, trunk_rows = [], []
+
+        def core(*args, **kwargs):
+            outs.append(_CORE(*args, **dict(kwargs, live_prefix=live_prefix)))
+            return outs[-1]
+
+        def backbone(params, x, **kwargs):
+            trunk_rows.append(x.shape[0])
+            return _BACKBONE(params, x, **kwargs)
+
+        monkeypatch.setattr(tcascade, "cascade_core", core)
+        monkeypatch.setattr(tinc, "apply_backbone", backbone)
+        det = tcascade.CascadeDetector(tmodel)
+        results = det.detect_batch(frames)
+        assert len(outs) == 1
+        return outs[0], det.counters, results, trunk_rows
+
+    ((ids_f, conf_f, alive_f, diag_f), slots_f), counts_f, res_f, trunk_f = run(False)
+    ((ids, conf, alive, diag), slots), counts, res, trunk = run(True)
+    assert torch.equal(ids, ids_f) and torch.equal(alive, alive_f) and torch.equal(diag, diag_f)
+    assert torch.equal(conf[alive], conf_f[alive_f])
+    for got, ref in zip(res, res_f):
+        np.testing.assert_array_equal(got.raw_window_ids, ref.raw_window_ids)
+        np.testing.assert_array_equal(got.raw_confidences, ref.raw_confidences)
+        np.testing.assert_array_equal(got.boxes, ref.boxes)
+    cap = tcascade.default_capacity_schedule(98, 2)[0]
+    n_live = max(r.n_survivors_per_stage[0] for r in res_f)
+    ran = -(-n_live // 5) * 5
+    assert cap == 98 and ran < cap
+    assert counts_f["rows_launched"] == [2 * 98, 2 * cap] and counts_f["rows_skipped"] == [0, 0]
+    assert counts["rows_launched"] == [2 * 98, 2 * ran]
+    assert counts["rows_skipped"] == [0, 2 * (cap - ran)]
+    assert slots_f == [98, cap] and slots == [98, ran]
+    assert trunk_f == [10] * 19 + [6] and trunk == [10] * (ran // 5)
+    if threshold == 0.75:
+        assert [r.n_survivors_per_stage[0] for r in res] == [39, 41] and ran == 45
+        for got, ref in zip(res, jcascade.CascadeDetector(jmodel).detect_batch(frames)):
+            tp.assert_results_close(got, ref)
+    else:
+        assert n_live == 0 and not trunk
+        assert all(len(r.raw_window_ids) == len(r.boxes) == 0 for r in res)
+
+
+def test_one_chunk_inception_stage_reads_no_live_count(models, monkeypatch):
+    """At the default byte budget (176 rows at 299 px) the Inception
+    stage's 98 slots fit one chunk: the live detector reads no live count,
+    runs every slot and skips none."""
+    _, tmodel, _, _, _ = models
+    tp.configure(**LIVE_CFG)
+
+    def refuse(alive):
+        raise AssertionError("a live count read for a stage run in one chunk")
+
+    monkeypatch.setattr(tcascade, "_live_slots", refuse)
+    det = tcascade.CascadeDetector(tmodel)
+    det.detect(_frame())
+    assert det.counters["rows_launched"] == [98, 98]
+    assert det.counters["rows_skipped"] == [0, 0]
+
+
+def test_static_bundle_equals_live_detector_skipping_chunks(models, tmp_path, monkeypatch):
+    """With the Inception stage cut into chunks of 33 slots (33, 33, 32)
+    before the export and the live run, a static bundle (every chunk)
+    serves the result of the live detector, which ran the two chunks that
+    hold the 39 live slots and skipped the third: the same windows,
+    confidences and boxes, bit for bit."""
+    _, tmodel, _, _, _ = models
+    tp.configure(**LIVE_CFG)
+    _chunk_rows(monkeypatch, 33)
+    bundle = tserve.export_detector(tmodel, 24, 28, batch=1, n_rungs=1)
+    tserve.save_bundle(bundle, str(tmp_path))
+    det = tcascade.CascadeDetector(tmodel)
+    live = det.detect(_frame())
+    assert live.n_survivors_per_stage[0] == 39
+    assert det.counters["rows_launched"][1] == 66 and det.counters["rows_skipped"][1] == 32
     tcf.reset()
     served = tserve.load_bundle(str(tmp_path), device="cpu").detect(_frame())
     np.testing.assert_array_equal(served.raw_window_ids, live.raw_window_ids)

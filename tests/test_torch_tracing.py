@@ -4,8 +4,9 @@
 profiler records, and never while ``torch.export`` traces; under a CPU
 ``torch.profiler`` one ``detect_batch_yuv420`` call opens one
 ``rodc.request`` with every other span inside it.
-``CascadeDetector.counters`` counts frames, upload bytes, rows launched
-and rows needed per stage, and re-dispatches at their rung.
+``CascadeDetector.counters`` counts frames, upload bytes, rows launched,
+skipped and needed per stage, and re-dispatches at their rung; a stage
+run in one chunk reads no live count.
 ``profiling.span_report`` splits a hand-made Chrome trace's idle time by
 the innermost span, the classes adding up to the idle time of the union
 of device intervals.
@@ -112,12 +113,28 @@ def test_counters_count_launched_and_needed_rows(model):
         "frames": 2,
         "upload_bytes": sum(y.nbytes + uv.nbytes for y, uv in frames),
         "rows_launched": [2 * n0] + [2 * c for c in caps],
+        "rows_skipped": [0, 0, 0],
         "rows_needed": [2 * n0] + [sum(r.n_survivors_per_stage[k] for r in results)
                                    for k in (0, 1)],
         "redispatches": 0,
     }
     det.redispatches = 5  # the attribute is the counter
     assert det.counters["redispatches"] == 5
+
+
+def test_one_chunk_stages_read_no_live_count(model, monkeypatch):
+    """A cascade without an Inception stage runs each stage's capacity in
+    one chunk: it reads no live count, launches every slot and skips
+    none."""
+    def refuse(alive):
+        raise AssertionError("a live count read for a stage run in one chunk")
+
+    monkeypatch.setattr(cascade, "_live_slots", refuse)
+    det = cascade.CascadeDetector(model)
+    n0 = det.detect_batch_yuv420(_frames(2))[0].n_windows
+    caps = cascade.default_capacity_schedule(n0, 3)
+    assert det.counters["rows_launched"] == [2 * n0] + [2 * c for c in caps]
+    assert det.counters["rows_skipped"] == [0, 0, 0]
 
 
 def test_counters_count_a_redispatch_at_its_rung(model):

@@ -30,7 +30,7 @@ first.
 For each setting it prints the median wall time of a batch, the kernel
 launches per batch, and, from one batch under torch.profiler: the
 detector's ``counters`` over that batch (frames, upload bytes, rows each
-stage launched and needed, re-dispatches), the card's idle time split by
+stage launched, skipped and needed, re-dispatches), the card's idle time split by
 the host span open at each idle instant (``utils/profiling.span_report``:
 between calls, upload and dispatch, read-back and decode, other), each
 ``rodc.*`` span's count and host, device and idle time (host NMS is
